@@ -1,6 +1,8 @@
 """Guards of the port: no JAX at run time, no silent fallbacks, and clear
-errors for what is not ported yet."""
+errors for what is not ported yet.  The capped path's own guards are in
+tests/test_torch_capped_plan.py."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -67,7 +69,7 @@ def test_wrappers_take_plain_versions_on_cpu():
 
     scene = synthetic.SimpleTestGaussiansScene(aspect=SMALL.aspect)
     scene.init()
-    r = Renderer(SMALL, device="cpu", use_kernels=True)
+    r = Renderer(SMALL, device="cpu")
     r.init_for_scene(scene.gaussians())
     assert r.draw_numpy(scene.camera)[..., :3].any()
     assert expand_kernel.LAUNCHES == 0
@@ -75,23 +77,51 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 
 def test_capped_blend_with_kernels_not_ported():
-    cfg = RenderConfig(width=64, height=48, blend_depth_cap=256)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        Renderer(cfg, device="cpu", use_kernels=True)
-    # Kernels off: the uncapped plain blend, as the JAX package does
-    # without its Pallas blend.
-    assert Renderer(cfg, device="cpu").use_kernels is False
+    """`blend_depth_cap > 0` was refused while the capped kernels were
+    unported (hence the name); it now selects the capped path, whose kernel
+    wrappers run their plain versions on CPU tensors."""
+    cfg = RenderConfig(width=64, height=48, capacity_slack_per_tile=16, blend_depth_cap=256)
+    scene = synthetic.SimpleTestGaussiansScene(aspect=cfg.aspect)
+    scene.init()
+    launches = blend_kernel.FLAT_LAUNCHES
+    r = Renderer(cfg, device="cpu")
+    assert r.temporal_caps
+    r.init_for_scene(scene.gaussians())
+    for _ in range(2):
+        out = r.draw(scene.camera)
+        assert out.ok is not None and bool(out.ok)  # the capped path's flag
+        assert out.image_u8[..., :3].any()
+        assert r._caps is not None and r._plan is None
+    assert blend_kernel.FLAT_LAUNCHES == launches
 
 
 def test_depth_threshold_prefilter_not_ported():
-    table = synthetic.simple_test_gaussians_table()
-    cam = Camera(SMALL.aspect)
+    """Keygen refused a depth-threshold map while the prefilter was unported
+    (hence the name); an all-SENTINEL map is now a no-op and an all-zero map
+    drops every coverable gaussian."""
+    scene = synthetic.SimpleTestGaussiansScene(aspect=SMALL.aspect)
+    scene.init()
+    table, cam = scene.gaussians(), scene.camera
     view, proj = cam.matrices()
-    thr = torch.zeros(SMALL.num_tiles, dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        keygen.generate_sort_elements(table, view, proj, cam.position, SMALL, 64, depth_thr=thr)
-    with pytest.raises(NotImplementedError):
-        keygen.count_live_elements(table, view, proj, cam.position, SMALL, depth_thr=thr)
+    full = int(keygen.count_live_elements(table, view, proj, cam.position, SMALL))
+    thr = torch.full((SMALL.num_tiles,), 0xFFFFFFFF, dtype=torch.int64)
+    el, _ = keygen.generate_sort_elements(table, view, proj, cam.position, SMALL, 64,
+                                          depth_thr=thr)
+    assert 0 < int(el.count) == min(full, 64)
+    zero = torch.zeros(SMALL.num_tiles, dtype=torch.int64)
+    assert int(keygen.count_live_elements(table, view, proj, cam.position, SMALL,
+                                          depth_thr=zero)) < full
+
+
+def test_no_handler_catches_kernel_errors():
+    """No module of the port, and not chip_smoke.py, catches an exception:
+    a failed build or launch always reaches the caller."""
+    files = sorted((REPO / "vk3dgaussiansplatting_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    for path in files:
+        tree = ast.parse(path.read_text())
+        handlers = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+        assert not handlers, f"{path.relative_to(REPO)} catches exceptions at lines {handlers}"
 
 
 def test_bitonic_sort_not_ported():

@@ -63,7 +63,7 @@ def test_renderer_matches_golden(name):
 
     table, cam = _scene(name)
     renderer = Renderer(convert.config_from_jax(CONFIG), device="cpu")
-    assert renderer.use_kernels is False
+    assert renderer.device.type == "cpu"
     renderer.init_for_scene(table)
     got = renderer.draw_numpy(cam)
     want = np.asarray(Image.open(HERE / "golden" / f"{name}.png"))
@@ -81,7 +81,7 @@ def test_renderer_matches_jax_pallas_frame(name):
     want = jpipe.render_frame(jtable, jnp.asarray(view), jnp.asarray(proj),
                               jnp.asarray(cam.position), config=CONFIG, capacity=cap,
                               use_pallas_blend=True)
-    renderer = Renderer(convert.config_from_jax(CONFIG), device="cpu", use_kernels=True)
+    renderer = Renderer(convert.config_from_jax(CONFIG), device="cpu")
     renderer.init_for_scene(table)
     out = renderer.draw(cam)
     _assert_u8_close(out.image_u8.numpy(), np.asarray(want.image_u8), f"jax frame {name}")

@@ -1,15 +1,17 @@
 """Hand-over from the JAX package's objects to the port's, without importing
-JAX: both functions read attributes only, so tests can feed the two packages
-the same scene and configuration."""
+JAX: the functions read attributes only, so tests can feed the two packages
+the same scene, configuration and mid-run capped state."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core.config import RenderConfig, SortAlgorithm, SphericalHarmonicsMode
 from .models.gaussians import GaussianTable
+from .ops.capped import CapsState
 
 
 def table_from_jax(t, device="cpu") -> GaussianTable:
@@ -27,3 +29,12 @@ def config_from_jax(cfg) -> RenderConfig:
     kw["sh_mode"] = SphericalHarmonicsMode(int(kw["sh_mode"]))
     kw["sort_algorithm"] = SortAlgorithm(kw["sort_algorithm"].value)
     return RenderConfig(**kw)
+
+
+def caps_state_from_jax(state, device="cpu") -> CapsState:
+    """A JAX `CapsState` (uint32 thresholds, int32 caps and floors, or
+    their numpy arrays) -> the port's CapsState of int64 tensors."""
+    return CapsState(*(
+        torch.from_numpy(np.asarray(getattr(state, f)).astype(np.int64)).to(device)
+        for f in CapsState._fields
+    ))

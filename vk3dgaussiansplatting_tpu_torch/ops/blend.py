@@ -102,6 +102,95 @@ def blend_rows_plain(
     return assemble_tile_colors(color, config)
 
 
+# Batch starts of the JAX flat blend (blend_kernel.py:496): each tile's
+# first batch begins at its range start rounded down to this alignment.
+ALIGN_K = 128
+
+
+def blend_flat_plain(
+    table: torch.Tensor,
+    index: torch.Tensor,
+    ranges: torch.Tensor,
+    config: RenderConfig,
+    *,
+    cap: int = 0,
+    with_t: bool = False,
+):
+    """Rank-stepped plain version of K3, the flat blend with the JAX flat
+    kernel's transmittance semantics (blend_kernel.py:561-644).
+
+    A tile's range is cut into batches of `config.blend_batch_k` elements
+    starting at ⌊start/128⌋·128.  Within a run batch every pixel multiplies
+    its T by (1 - alpha) over every eligible element, and contributes colour
+    only while its incoming T is still >= transmittance_stop.  Before each
+    batch after the first, the tile stops once every one of its 256 pixels
+    (those past the image edge included) has T < stop.  The colours equal
+    `blend_rows_plain`'s; the carried T is what the capped policy reads.
+
+    Args:
+      table: [N, 10] float32 feature rows (pack_feature_table).
+      index: [E] int64 gaussian id per slot; SENTINEL, and slots >= E, are
+        dead.
+      ranges: [num_tiles, 2] int64 (start, end) into `index`.
+      cap: > 0 cuts each range to its first `cap` elements.
+      with_t: also return the per-pixel outgoing T, [num_tiles, 256] float32
+        (1 for tiles with no elements).
+
+    Returns the [H, W, 3] image in [0, 1] (and T with `with_t`).
+    """
+    device = table.device
+    ts = config.tile_size
+    p = ts * ts
+    num_tiles = config.num_tiles
+    stop = config.transmittance_stop
+    cutoff = config.alpha_cutoff
+    bk = config.blend_batch_k
+    e = index.shape[0]
+
+    tiles = torch.arange(num_tiles, device=device)
+    pix = torch.arange(p, device=device)
+    px = ((tiles % config.grid_width)[:, None] * ts + pix % ts).float()
+    py = ((tiles // config.grid_width)[:, None] * ts + pix // ts).float()
+
+    start = ranges[:, 0]
+    end = ranges[:, 1]
+    if cap:
+        end = torch.minimum(end, start + cap)
+    length = torch.clamp(end - start, min=0)
+    astart = torch.div(start, ALIGN_K, rounding_mode="floor") * ALIGN_K
+    trans = torch.ones((num_tiles, p), device=device)
+    color = torch.zeros((num_tiles, p, 3), device=device)
+    stopped = torch.zeros(num_tiles, dtype=torch.bool, device=device)
+
+    max_len = int(length.max()) if num_tiles else 0
+    for r in range(max_len):
+        k = start + r
+        if r > 0:
+            boundary = (r < length) & (torch.remainder(k - astart, bk) == 0)
+            stopped |= boundary & (trans.amax(dim=1) < stop)
+        act = torch.nonzero((r < length) & ~stopped).squeeze(1)
+        if act.numel() == 0:
+            break
+        kk = k[act]
+        idx = index[torch.clamp(kk, max=e - 1)]
+        live = (kk < e) & (idx != SENTINEL)
+        row = table[torch.where(live, idx, 0)]  # [A, 10]
+        gx, gy, a, b, c = (row[:, j : j + 1] for j in range(5))
+        galpha = torch.where(live, row[:, 9], 0.0)[:, None]
+
+        dx = gx - px[act]
+        dy = py[act] - gy
+        f = (a * dx * dx + c * dy * dy) + b * dx * dy
+        alpha = galpha * torch.exp(f)
+        t_act = trans[act]
+        elig = (f <= 0.0) & (alpha >= cutoff)
+        w = torch.where(elig & (t_act >= stop), t_act * alpha, 0.0)
+        color[act] += w[:, :, None] * row[:, None, 6:9]
+        trans[act] = torch.where(elig, t_act * (1.0 - alpha), t_act)
+    img = assemble_tile_colors(color, config)
+    return (img, trans) if with_t else img
+
+
 def quantize_image(img: torch.Tensor) -> torch.Tensor:
     """float [H,W,3] in [0,1] -> uint8 rgba, matching rgba8 unorm imageStore
     (round half to even) with alpha = 255 (RenderGaussians.comp:146-151)."""

@@ -1,7 +1,8 @@
 """Builds and loads the port's CUDA kernels.
 
-All `csrc/*.cu` files compile with `nvcc` into one shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers, so a build takes
+Each `csrc/*.cu` file compiles with its own `nvcc` process, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes
 seconds).  The library lands in the package's `_build/` directory under a
 name keyed by a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one loads the existing file.  Nothing here runs at import:
@@ -29,7 +30,7 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -47,6 +48,17 @@ SIGNATURES = {
         [_P, _P, _P, _I32, _I32, _I32, _I32, _F32, _F32, _P, _I32, _P],
         ctypes.c_int,
     ),
+    # table, index, num_index, ranges, num_tiles, cap, batch_k, grid_w,
+    # width, height, alpha_cutoff, transmittance_stop, out, t_out (or
+    # NULL), device, stream
+    "vk3d_blend_flat": (
+        [_P, _P, _I64, _P, _I32, _I64, _I32, _I32, _I32, _I32, _F32, _F32, _P, _P, _I32, _P],
+        ctypes.c_int,
+    ),
+    # src, e, astarts, sbases, nt, ep, wmax, out, device, stream
+    "vk3d_compact_runs": ([_P, _I64, _P, _P, _I64, _I64, _I64, _P, _I32, _P], ctypes.c_int),
+    # src, e, src0, ep, out, device, stream
+    "vk3d_compact_segments": ([_P, _I64, _P, _I64, _P, _I32, _P], ctypes.c_int),
     "vk3d_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -90,18 +102,33 @@ def build() -> Path:
             f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels cannot be built"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(s) for s in _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        procs = []
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src.stem}.o"), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )))
+        # Wait for every compile before reporting any failure.
+        results = [(cmd, proc, *proc.communicate()) for cmd, proc in procs]
+        reports = []
+        for cmd, proc, stdout, stderr in results:
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stderr}"
+                )
+            reports.append(stdout + stderr)
+        tmp = work / out.name
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(work / f"{s.stem}.o") for s in _sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     # ptxas's per-kernel register / shared-memory / spill report.
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    out.with_suffix(".log").write_text("".join(reports))
     return out
 
 

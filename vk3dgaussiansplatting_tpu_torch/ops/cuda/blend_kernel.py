@@ -1,13 +1,18 @@
-"""Tiled front-to-back blend (K2) — wrapper of csrc/blend.cu.
+"""Tiled front-to-back blends (K2, K3) — wrappers of csrc/blend.cu and
+csrc/blend_flat.cu.
 
-Replaces vk3dgaussiansplatting_tpu/ops/pallas/blend_kernel.py:
-blend_tiles_pallas and its feature table, `pack_feature_table`.  The kernel
-gathers each element's row from the per-gaussian [N, 10] table itself, so
-there is no [E, 16] sorted-order feature array as on the TPU.
+K2 `blend_rows` replaces vk3dgaussiansplatting_tpu/ops/pallas/
+blend_kernel.py:blend_tiles_pallas and its feature table,
+`pack_feature_table`; K3 `blend_flat` replaces blend_flat_core /
+blend_tiles_pallas_flat, the capped path's blend with its per-pixel
+transmittance output.  Both kernels gather each element's row from the
+per-gaussian [N, 10] table by id, so there is no [16, E] sorted-order
+feature array as on the TPU.
 
-`blend_rows` launches the CUDA kernel for CUDA tensors and runs
-ops/blend.py:blend_rows_plain for CPU tensors; it never falls back from one
-to the other.  `LAUNCHES` counts kernel launches.
+`blend_rows` and `blend_flat` launch their CUDA kernels for CUDA tensors
+and run ops/blend.py:blend_rows_plain / blend_flat_plain for CPU tensors;
+they never fall back from one to the other.  `LAUNCHES` (K2) and
+`FLAT_LAUNCHES` (K3) count kernel launches.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from ..keygen import GaussianFrameData, SortElements
 from . import _build
 
 LAUNCHES = 0
+FLAT_LAUNCHES = 0
 
 
 def pack_feature_table(frame: GaussianFrameData) -> torch.Tensor:
@@ -30,10 +36,13 @@ def pack_feature_table(frame: GaussianFrameData) -> torch.Tensor:
     f = a'dx^2 + c'dy^2 + b'dxdy directly; scaling by powers of two is exact,
     so this equals the GLSL -0.5(a dx^2 + c dy^2) - b dx dy
     (RenderGaussians.comp:117-124) bit for bit."""
-    scale = torch.tensor([-0.5, -1.0, -0.5], device=frame.cov_inv.device)
+    ci = frame.cov_inv
+    # Scalar multiplies: a scale vector made on the device would cost a
+    # host-synchronising copy per frame.
+    cov_scaled = torch.stack([ci[:, 0] * -0.5, ci[:, 1] * -1.0, ci[:, 2] * -0.5], dim=-1)
     zeros = torch.zeros_like(frame.screen_pos[:, :1])
     return torch.cat(
-        [frame.screen_pos, frame.cov_inv * scale, zeros, frame.color_alpha], dim=-1
+        [frame.screen_pos, cov_scaled, zeros, frame.color_alpha], dim=-1
     ).contiguous()
 
 
@@ -96,3 +105,74 @@ def blend_tiles(
 ) -> torch.Tensor:
     """Blend all tiles of a sorted frame (blend_tiles_pallas's signature)."""
     return blend_rows(pack_feature_table(frame), elements.index, ranges, config)
+
+
+def blend_flat(
+    table: torch.Tensor,
+    index: torch.Tensor,
+    ranges: torch.Tensor,
+    config: RenderConfig,
+    *,
+    cap: int = 0,
+    with_t: bool = False,
+):
+    """K3: blend every tile's [start, end) of `index` with the TPU flat
+    kernel's transmittance semantics (ops/blend.py:blend_flat_plain).
+
+    table: [N, 10] float32; index: [E] int64 gaussian ids (SENTINEL, and
+    slots >= E, are dead); ranges: [num_tiles, 2] int64; cap > 0 cuts each
+    range to its first `cap` elements.  Returns the [H, W, 3] float32 image
+    in [0, 1], and with `with_t` also the per-pixel outgoing transmittance
+    [num_tiles, 256] float32."""
+    global FLAT_LAUNCHES
+    _check(table, index, ranges, config)
+    if config.blend_batch_k <= 0 or config.blend_batch_k % blend_ops.ALIGN_K:
+        raise ValueError(f"blend_batch_k must be a positive multiple of {blend_ops.ALIGN_K}")
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    if table.device.type == "cpu":
+        return blend_ops.blend_flat_plain(table, index, ranges, config, cap=cap, with_t=with_t)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    table, index, ranges = table.contiguous(), index.contiguous(), ranges.contiguous()
+    out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=table.device)
+    t_out = (
+        torch.empty((config.num_tiles, config.tile_size**2), dtype=torch.float32,
+                    device=table.device)
+        if with_t else None
+    )
+    err = _build.load_library().vk3d_blend_flat(
+        table.data_ptr(),
+        index.data_ptr(),
+        index.shape[0],
+        ranges.data_ptr(),
+        config.num_tiles,
+        cap,
+        config.blend_batch_k,
+        config.grid_width,
+        config.width,
+        config.height,
+        config.alpha_cutoff,
+        config.transmittance_stop,
+        out.data_ptr(),
+        t_out.data_ptr() if with_t else None,
+        table.device.index,
+        torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    _build.check_launch(err, "blend_flat")
+    FLAT_LAUNCHES += 1
+    return (out, t_out) if with_t else out
+
+
+def blend_tiles_flat(
+    elements: SortElements,
+    ranges: torch.Tensor,
+    frame: GaussianFrameData,
+    config: RenderConfig,
+    *,
+    cap: int = 0,
+    with_t: bool = False,
+):
+    """K3 over a sorted frame (blend_tiles_pallas_flat's signature)."""
+    return blend_flat(pack_feature_table(frame), elements.index, ranges, config,
+                      cap=cap, with_t=with_t)

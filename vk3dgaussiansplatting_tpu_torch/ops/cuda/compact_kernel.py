@@ -1,0 +1,143 @@
+"""Packed-layout copies (K5 `compact_runs`, K6 `compact_segments`) —
+wrappers of csrc/compact.cu.
+
+Replace vk3dgaussiansplatting_tpu/ops/pallas/compact_kernel.py:compact_runs
+and :compact_segments.  The capped layout (ops/capped.py) copies each
+tile's run of sorted gaussian ids into 128-aligned slabs with K5; K6 is the
+per-128-lane-chunk copy it replaced on the TPU, kept because it is a kernel
+of the JAX package.
+
+Values are int64 (the port's sorted ids: uint32 values, SENTINEL included).
+Source slots at or past E read 0, as the TPU wrappers' zero padding does.
+Lanes no tile writes hold 0 here; on the TPU they hold whatever the output
+buffer held, and callers mask them either way.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+version for CPU tensors; it never falls back from one to the other.
+`RUNS_LAUNCHES` and `SEGMENTS_LAUNCHES` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+CHUNK = 128
+RUNS_LAUNCHES = 0
+SEGMENTS_LAUNCHES = 0
+
+
+def _check_src(src: torch.Tensor, ep: int) -> None:
+    if src.dim() != 1 or src.dtype != torch.int64:
+        raise ValueError(f"src must be [E] int64, got {tuple(src.shape)} {src.dtype}")
+    if ep < 0 or ep % CHUNK:
+        raise ValueError(f"ep must be a non-negative multiple of {CHUNK}, got {ep}")
+
+
+def _check_table(name: str, x: torch.Tensor, src: torch.Tensor, n: int | None = None) -> None:
+    if x.dim() != 1 or x.dtype != torch.int64:
+        raise ValueError(f"{name} must be 1-D int64, got {tuple(x.shape)} {x.dtype}")
+    if n is not None and x.shape[0] != n:
+        raise ValueError(f"{name} must have {n} entries, got {x.shape[0]}")
+    if x.device != src.device:
+        raise ValueError(f"{name} and src must be on one device")
+
+
+def _padded(src: torch.Tensor, pad: int) -> torch.Tensor:
+    """src zero-padded to a multiple of 128, plus `pad` (the TPU wrappers'
+    source row)."""
+    e = src.shape[0]
+    return torch.cat([src, src.new_zeros(-(-e // CHUNK) * CHUNK - e + pad)])
+
+
+def _runs_offsets(src, starts, sbases, ep: int, wmax: int):
+    """The TPU wrapper's clipped offsets (compact_kernel.py:145-149)."""
+    e_pad = -(-src.shape[0] // CHUNK) * CHUNK + wmax
+    astarts = torch.clamp(torch.div(starts, CHUNK, rounding_mode="floor") * CHUNK, 0, e_pad - wmax)
+    return astarts.contiguous(), torch.clamp(sbases, 0, ep).contiguous()
+
+
+def compact_runs_plain(src, starts, sbases, ep: int, wmax: int) -> torch.Tensor:
+    """The TPU kernel's stores, one tile after another: out[sbase_t : +wmax]
+    = src[astart_t : +wmax] (zero past E), later tiles overwriting."""
+    astarts, sb = _runs_offsets(src, starts, sbases, ep, wmax)
+    src_pad = _padded(src, wmax)
+    out = src.new_zeros(ep + wmax)
+    for a, b in zip(astarts.tolist(), sb.tolist()):
+        out[b : b + wmax] = src_pad[a : a + wmax]
+    return out[:ep]
+
+
+def compact_runs(src, starts, sbases, ep: int, wmax: int) -> torch.Tensor:
+    """Per-run alignment-preserving compaction: for every tile t, with
+    off_t = starts[t] mod 128, out[sbases[t] + off_t + i] = src[starts[t] + i]
+    for i < wmax - off_t.
+
+    Args:
+      src: [E] int64 source values (sorted element order).
+      starts: [T] int64 first source slot per tile.
+      sbases: [T] int64 128-aligned slab bases, non-decreasing, with
+        sbases[t+1] - sbases[t] <= wmax.
+      ep: packed capacity, a multiple of 128; wmax: the per-tile window, a
+        multiple of 128.
+
+    Returns [ep] int64."""
+    global RUNS_LAUNCHES
+    _check_src(src, ep)
+    _check_table("starts", starts, src)
+    _check_table("sbases", sbases, src, starts.shape[0])
+    if wmax <= 0 or wmax % CHUNK:
+        raise ValueError(f"wmax must be a positive multiple of {CHUNK}, got {wmax}")
+    if src.device.type == "cpu":
+        return compact_runs_plain(src, starts, sbases, ep, wmax)
+    if src.device.type != "cuda":
+        raise ValueError(f"unsupported device {src.device}")
+    astarts, sb = _runs_offsets(src, starts, sbases, ep, wmax)
+    src = src.contiguous()
+    out = torch.empty(ep, dtype=torch.int64, device=src.device)
+    err = _build.load_library().vk3d_compact_runs(
+        src.data_ptr(), src.shape[0], astarts.data_ptr(), sb.data_ptr(), sb.shape[0], ep, wmax,
+        out.data_ptr(), src.device.index, torch.cuda.current_stream(src.device).cuda_stream,
+    )
+    _build.check_launch(err, "compact_runs")
+    RUNS_LAUNCHES += 1
+    return out
+
+
+def _segment_starts(src, src0):
+    """The TPU wrapper's clip (compact_kernel.py:231)."""
+    e_pad = -(-src.shape[0] // CHUNK) * CHUNK + 2 * CHUNK
+    return torch.clamp(src0, 0, e_pad - 2 * CHUNK).contiguous()
+
+
+def compact_segments_plain(src, src0, ep: int) -> torch.Tensor:
+    """out[128 j + l] = src[clip(src0_j) + l] (zero past E)."""
+    s0 = _segment_starts(src, src0)
+    pos = s0[:, None] + torch.arange(CHUNK, device=src.device)
+    return _padded(src, 2 * CHUNK)[pos.reshape(-1)]
+
+
+def compact_segments(src, src0, ep: int) -> torch.Tensor:
+    """Copy per-chunk 128-lane source windows into a packed [ep] array.
+
+    src: [E] int64; src0: [ep // 128] int64 first source slot of each packed
+    chunk (clipped in bounds here); ep: a multiple of 128.  Returns [ep]
+    int64."""
+    global SEGMENTS_LAUNCHES
+    _check_src(src, ep)
+    _check_table("src0", src0, src, ep // CHUNK)
+    if src.device.type == "cpu":
+        return compact_segments_plain(src, src0, ep)
+    if src.device.type != "cuda":
+        raise ValueError(f"unsupported device {src.device}")
+    s0 = _segment_starts(src, src0)
+    src = src.contiguous()
+    out = torch.empty(ep, dtype=torch.int64, device=src.device)
+    err = _build.load_library().vk3d_compact_segments(
+        src.data_ptr(), src.shape[0], s0.data_ptr(), ep, out.data_ptr(), src.device.index,
+        torch.cuda.current_stream(src.device).cuda_stream,
+    )
+    _build.check_launch(err, "compact_segments")
+    SEGMENTS_LAUNCHES += 1
+    return out

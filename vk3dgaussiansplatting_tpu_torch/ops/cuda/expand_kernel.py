@@ -1,9 +1,16 @@
-"""Monotone fixed-capacity expansion (K1) — wrapper of csrc/expand.cu.
+"""Monotone fixed-capacity expansion (K1, K1') — wrappers of csrc/expand.cu.
 
-Replaces vk3dgaussiansplatting_tpu/ops/pallas/expand_kernel.py:expand_rows.
-`expand_rows` launches the CUDA kernel for CUDA tensors and runs
+Replaces vk3dgaussiansplatting_tpu/ops/pallas/expand_kernel.py:expand_rows
+(K1) and :expand_rows_streamed (K1').  On the TPU the two differ only in
+their DMA schedule: K1' streams windows for the prefilter's thinned counts
+(~1 element per source row), and its output is K1's bit for bit.  The CUDA
+kernel's thread-per-slot binary search does not depend on run lengths, so
+both wrappers launch it; each keeps its own launch count, so a run shows
+which of the two the frame went through.
+
+Each wrapper launches the CUDA kernel for CUDA tensors and runs
 `expand_rows_plain` for CPU tensors; it never falls back from one to the
-other.  `LAUNCHES` counts kernel launches.
+other.  `LAUNCHES` and `STREAMED_LAUNCHES` count kernel launches.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import torch
 from . import _build
 
 LAUNCHES = 0
+STREAMED_LAUNCHES = 0
 MAX_COLS = 7
 
 
@@ -41,21 +49,7 @@ def expand_rows_plain(cols: torch.Tensor, counts: torch.Tensor, capacity: int):
     return out, total
 
 
-def expand_rows(cols: torch.Tensor, counts: torch.Tensor, capacity: int):
-    """Expand ≤7 int32 columns of N rows by `counts` into `capacity` slots.
-
-    Args:
-      cols: [C, N] int32, one row per column of the packed source rows.
-      counts: [N] int32/int64 per-row element counts (0 for culled rows).
-      capacity: slot capacity E.
-
-    Returns (out, total): [C, E] int32 with out[:, j] the row covering slot j
-    (zeros past min(total, E)), and the [] int64 unclamped total.
-    """
-    global LAUNCHES
-    _check(cols, counts)
-    if cols.device.type == "cpu":
-        return expand_rows_plain(cols, counts, capacity)
+def _launch(cols: torch.Tensor, counts: torch.Tensor, capacity: int):
     if cols.device.type != "cuda":
         raise ValueError(f"unsupported device {cols.device}")
     cols = cols.contiguous()
@@ -74,5 +68,36 @@ def expand_rows(cols: torch.Tensor, counts: torch.Tensor, capacity: int):
         torch.cuda.current_stream(cols.device).cuda_stream,
     )
     _build.check_launch(err, "expand_rows")
-    LAUNCHES += 1
     return out, total
+
+
+def expand_rows(cols: torch.Tensor, counts: torch.Tensor, capacity: int):
+    """Expand ≤7 int32 columns of N rows by `counts` into `capacity` slots.
+
+    Args:
+      cols: [C, N] int32, one row per column of the packed source rows.
+      counts: [N] int32/int64 per-row element counts (0 for culled rows).
+      capacity: slot capacity E.
+
+    Returns (out, total): [C, E] int32 with out[:, j] the row covering slot j
+    (zeros past min(total, E)), and the [] int64 unclamped total.
+    """
+    global LAUNCHES
+    _check(cols, counts)
+    if cols.device.type == "cpu":
+        return expand_rows_plain(cols, counts, capacity)
+    result = _launch(cols, counts, capacity)
+    LAUNCHES += 1
+    return result
+
+
+def expand_rows_streamed(cols: torch.Tensor, counts: torch.Tensor, capacity: int):
+    """K1', keygen's expansion under the depth prefilter: `expand_rows`'s
+    arguments and result, counted in `STREAMED_LAUNCHES`."""
+    global STREAMED_LAUNCHES
+    _check(cols, counts)
+    if cols.device.type == "cpu":
+        return expand_rows_plain(cols, counts, capacity)
+    result = _launch(cols, counts, capacity)
+    STREAMED_LAUNCHES += 1
+    return result

@@ -89,20 +89,25 @@ def _frame_geometry(table, view, proj, config):
     return pos_view, visible, depth, cov2d, screen_pos, extents
 
 
-def _check_no_prefilter(depth_thr) -> None:
-    if depth_thr is not None:
-        raise NotImplementedError(
-            "the depth-threshold prefilter belongs to the capped path "
-            "(ROADMAP slice 2, A10) and is not ported yet"
-        )
+def _emit_mask(visible, screen_pos, extents, depth, config, depth_thr):
+    """The cull mask, AND the prefilter's keep mask under `depth_thr`."""
+    if depth_thr is None:
+        return visible
+    from . import prefilter
+
+    dil = prefilter.dilate_thresholds(depth_thr, config)
+    keep = prefilter.gaussian_keep_mask(screen_pos, extents, depth, dil, config)
+    return visible & keep
 
 
 def count_live_elements(table, view, proj, cam_pos, config, depth_thr=None):
-    """Live sort-element count without the expansion, as a [] int64 tensor."""
-    _check_no_prefilter(depth_thr)
-    _pv, visible, _d, _c2, _sp, extents = _frame_geometry(table, view, proj, config)
+    """Live sort-element count without the expansion (projection, extents
+    and the optional prefilter only), as a [] int64 tensor: the steady
+    switch's feasibility probe (pipeline.ChainedTemporalPlan)."""
+    _pv, visible, depth, _c2, screen_pos, extents = _frame_geometry(table, view, proj, config)
+    emit = _emit_mask(visible, screen_pos, extents, depth, config, depth_thr)
     counts = (extents[:, 2] - extents[:, 0]) * (extents[:, 3] - extents[:, 1])
-    return torch.where(visible, counts, 0).sum()
+    return torch.where(emit, counts, 0).sum()
 
 
 def generate_sort_elements(
@@ -114,10 +119,14 @@ def generate_sort_elements(
     capacity: int,
     depth_thr=None,
     *,
-    use_kernels: bool = True,
     timer=None,
 ):
     """Full InitSortList pass over the gaussian table.
+
+    The expansion is the plain version for `expansion_method="repeat"`, K1
+    (`expand_rows`), or K1' (`expand_rows_streamed`) for "stream" and, under
+    a `depth_thr`, for "pallas" and "auto" (the JAX dispatch,
+    keygen.py:217-238).
 
     Args:
       table: GaussianTable of tensors on one device.
@@ -125,15 +134,15 @@ def generate_sort_elements(
       cam_pos: [3] float32 camera world position (numpy).
       config: render config.
       capacity: sort-element capacity E.
-      depth_thr: the capped path's prefilter; not ported (raises).
-      use_kernels: False forces the expansion's plain version, as
-        `expansion_method="repeat"` does.
+      depth_thr: optional [num_tiles] int64 depth-threshold map
+        (ops/prefilter.py): gaussians provably behind every touched tile's
+        threshold emit no elements.  None, or an all-SENTINEL map, gives the
+        unfiltered list bit for bit.
       timer: optional utils.timing.CudaPassTimer; times the expansion as
         "expand".
 
     Returns (SortElements, GaussianFrameData).
     """
-    _check_no_prefilter(depth_thr)
     if config.expansion_method not in EXPANSION_METHODS:
         raise ValueError(f"unknown expansion_method {config.expansion_method!r}")
     device = table.position.device
@@ -161,7 +170,8 @@ def generate_sort_elements(
     # --- element allocation (a scan replaces atomicAdd) -------------------
     w = extents[:, 2] - extents[:, 0]
     h = extents[:, 3] - extents[:, 1]
-    counts = torch.where(visible, w * h, 0)
+    emit = _emit_mask(visible, screen_pos, extents, depth, config, depth_thr)
+    counts = torch.where(emit, w * h, 0)
     offsets = torch.cumsum(counts, 0) - counts  # exclusive, int64
     # Column values are int32 (the kernel's row format).  Only rows with
     # offset < capacity are read, so clamping the offset loses nothing; the
@@ -176,11 +186,14 @@ def generate_sort_elements(
             torch.where(depth >= 2**31, depth - 2**32, depth),
         ]
     ).to(torch.int32)
+    method = config.expansion_method
     with section(timer, "expand"):
-        if use_kernels and config.expansion_method != "repeat":
-            cols, total = expand_kernel.expand_rows(packed_cols, counts, capacity)
-        else:
+        if method == "repeat":
             cols, total = expand_kernel.expand_rows_plain(packed_cols, counts, capacity)
+        elif method == "stream" or depth_thr is not None:
+            cols, total = expand_kernel.expand_rows_streamed(packed_cols, counts, capacity)
+        else:
+            cols, total = expand_kernel.expand_rows(packed_cols, counts, capacity)
 
     cols = cols.to(torch.int64)
     slot = torch.arange(capacity, device=device, dtype=torch.int64)

@@ -1,9 +1,9 @@
 """Per-tile range extraction — the FindRanges pass.
 
 Port of `vk3dgaussiansplatting_tpu.ops.ranges`: each tile's [start, end) is
-found by binary search of the sorted tile keys (`torch.searchsorted` in place
-of ops/search.two_level_left_search) instead of the reference's per-element
-boundary scatter (FindRanges.comp).
+found by binary search of the sorted tile keys (ops/search.py, one
+`torch.searchsorted`) instead of the reference's per-element boundary
+scatter (FindRanges.comp).
 
 Quirks reproduced from FindRanges.comp:44-70, as in the JAX package:
   * tiles with no elements report (0, 0), the reference's cleared buffer;
@@ -19,6 +19,7 @@ import torch
 
 from ..core.config import SENTINEL
 from .keygen import SortElements
+from .search import two_level_left_search
 
 
 def find_ranges(elements: SortElements, num_tiles: int) -> torch.Tensor:
@@ -28,7 +29,7 @@ def find_ranges(elements: SortElements, num_tiles: int) -> torch.Tensor:
     # searchsorted(t, "right") == searchsorted(t + 1, "left") on integer
     # keys: probing 0..num_tiles once gives starts and ends.
     probes = torch.arange(num_tiles + 1, device=tile.device, dtype=tile.dtype)
-    ext = torch.searchsorted(tile, probes)
+    ext = two_level_left_search(tile, probes)
     starts, ends = ext[:-1], ext[1:]
     empty = starts == ends
     starts = torch.where(empty, 0, starts)

@@ -6,6 +6,13 @@ the same on PyTorch's current stream: a pass wrapped in
 `section(timer, name)` records an event before and after it, and nothing
 waits for the device until `summary()`.  With `timer=None` a section costs
 nothing, so the frame code carries the sections unconditionally.
+
+Sections of the frame: keygen (expand inside it), sort, ranges, and then
+either blend (K2, or the whole static-cap blend) or the temporal capped
+passes: layout (the K1 chunk map, K5 compaction and the feature table),
+blend (K3 with its transmittance), policy (validation and the caps and
+threshold update, up to the branch read-back) and patch (the patch pass or
+full fallback; empty on fast-path frames).
 """
 
 from __future__ import annotations
