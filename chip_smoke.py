@@ -41,10 +41,24 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            ±1 8-bit on r, g and b; ok true on the last timed frame
   motion   garden's chained plan for 10 more frames at camera step 1e-3,
            recorded (mode, live, ok, unfixable tiles), not checked
+  dist     the distributed depth-banded frame (parallel/dist.py) at
+           garden30k_1080p, full width, same scale: world 4 on gloo, the four
+           ranks sharing the one card (each a spawned process that rebuilds
+           the table from the seed and takes its shard; the exchange is
+           copied through host memory, not NCCL), 1 warm-up + 3 timed
+           frames; then world 1 on NCCL, 1 warm-up + 1 timed frame.  Per
+           rank: ms/frame and per-pass ms (keygen, bucket, exchange, sort,
+           ranges, blend), [live, sent, received, dropped].  Checked: sent
+           == live on every rank, sum received == sum sent, no strip-window
+           drops, max received <= 3 x min received; K4 == its plain version
+           bit for bit (colour and log T) on every phase of every rank's last
+           frame; the assembled image within ±1 8-bit per channel of the
+           uncapped single-device frame of the same camera
   launches each path's kernels launched during its frames (counts set to 0
-           just before the path, read just after); K6, which no path runs,
-           reports 0 path launches, and its check-phase comparison calls
-           apart ("check_launches", "on_path": false)
+           just before the path, read just after; the distributed path's
+           summed over ranks); K6, which no path runs, reports 0 path
+           launches, and its check-phase comparison calls apart
+           ("check_launches", "on_path": false)
 
 Then one JSON line with each kernel's launches, error and times, and last
 {"ok": true, "device": {...}}.
@@ -58,11 +72,13 @@ import linecache
 import math
 import statistics
 import subprocess
+import tempfile
 import time
 import warnings
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL, RenderConfig
 from vk3dgaussiansplatting_tpu_torch.models.gaussians import GaussianTable
@@ -72,6 +88,7 @@ from vk3dgaussiansplatting_tpu_torch.ops import keygen, ranges, sort
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import (
     _build, blend_kernel, compact_kernel, expand_kernel,
 )
+from vk3dgaussiansplatting_tpu_torch.parallel import dist, mesh, multihost
 from vk3dgaussiansplatting_tpu_torch.pipeline import Renderer, render_frame
 from vk3dgaussiansplatting_tpu_torch.render.camera import Camera
 from vk3dgaussiansplatting_tpu_torch.scenes import synthetic
@@ -97,6 +114,16 @@ SYNC_FRAMES = 2  # frames run under torch's sync debug mode, before timing
 # and the switch is declined (PERF.md, Findings), which `probe_motion` measures.
 CAPPED_NUDGE = {"train7k_720p": 1e-3, "garden30k_1080p": 1e-5}
 MOTION_PROBE = (10, 1e-3)  # frames and step of garden's motion probe
+# The distributed phase: (backend, world, warm-up frames, timed frames) per
+# run.  Four gloo ranks share the one card (NCCL refuses two ranks on one
+# GPU); world 1 on NCCL covers NCCL's code path.  Frame i of a run draws the
+# camera at step DIST_LAST_STEP - (frames - 1 - i) of DIST_NUDGE in x, so
+# every run ends at the camera of the single-device reference frame.
+DIST_SCENE = "garden30k_1080p"
+DIST_RUNS = (("gloo", 4, 1, 3), ("nccl", 1, 1, 1))
+DIST_NUDGE = 1e-3
+DIST_LAST_STEP = 3
+DIST_PASSES = ("keygen", "bucket", "exchange", "sort", "ranges", "blend")
 
 # Launch counters of the kernel wrappers.
 COUNTERS = {
@@ -106,6 +133,7 @@ COUNTERS = {
     "blend_flat": (blend_kernel, "FLAT_LAUNCHES"),
     "compact_runs": (compact_kernel, "RUNS_LAUNCHES"),
     "compact_segments": (compact_kernel, "SEGMENTS_LAUNCHES"),
+    "blend_strip": (blend_kernel, "STRIP_LAUNCHES"),
 }
 
 
@@ -200,6 +228,7 @@ class Capture:
         (expand_kernel, "expand_rows_streamed"),
         (blend_kernel, "blend_rows"),
         (blend_kernel, "blend_flat"),
+        (blend_kernel, "blend_strip"),
         (compact_kernel, "compact_runs"),
         (capped_ops, "capped_finish"),
     )
@@ -636,6 +665,145 @@ def probe_motion(renderer: Renderer, cam: Camera, name: str) -> None:
         f"per frame {rows}")
 
 
+def dist_camera(cam: Camera, base, step: int) -> Camera:
+    cam.set_position(base + np.float32([DIST_NUDGE * step, 0.0, 0.0]))
+    return cam
+
+
+def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: int,
+              outdir: str) -> None:
+    """One rank of the distributed phase, in its own spawned process: the
+    scene rebuilt from its seed at the calibrated scale, this rank's shard,
+    warm + timed frames of make_distributed_render's frame function, then K4
+    against its plain version on every phase of the last frame.  What it
+    found goes to <outdir>/rank<rank>.pt."""
+    torch.cuda.set_device(0)
+    table, config, cam, _target, _frames = make_scene(name)
+    padded = dist._pad_table(scaled(table, mult), world)
+    shard = dist.shard_table(padded, rank, world).to("cuda")
+    plan = dist.plan_distribution(config, padded.num_gaussians, world)
+    del table, padded
+    comm = mesh.Communicator("cuda")
+    frame = dist.make_distributed_render(comm, config, plan, return_stats=True)
+    base = cam.position.copy()
+    timer = CudaPassTimer()
+    events = []
+    reset_counts()
+    with Capture() as cap:
+        for i in range(warm + timed):
+            cap.new_frame()
+            dist_camera(cam, base, DIST_LAST_STEP - (warm + timed - 1 - i))
+            view, proj = cam.matrices()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            strip, stats = frame(shard, view, proj, cam.position, timer=timer if i >= warm else None)
+            end.record()
+            if i >= warm:
+                events.append((start, end))
+        torch.cuda.synchronize()
+    launches = read_counts()
+    passes = {k: v / timed for k, v in timer.totals().items()}
+
+    # K4 on each phase's own inputs (launches here are not the path's).
+    phases = cap.calls["blend_strip"]
+    if len(phases) != world:
+        raise RuntimeError(f"rank {rank}: {len(phases)} blend_strip calls in a frame, not {world}")
+    err = 0.0
+    for s, (a, k) in enumerate(phases):
+        got = blend_kernel.blend_strip(*a, **k)
+        want = blend_ops.blend_strip_plain(*a, **k)
+        for what, g, w in zip(("colour", "log T"), got, want):
+            if not torch.equal(g, w):
+                d = (g - w).abs().nan_to_num(posinf=float("inf"))
+                raise RuntimeError(f"rank {rank} phase {s}: blend_strip {what} differs from its "
+                                   f"plain version at {int((g != w).sum())} values, max |Δ| "
+                                   f"{float(d.max())}")
+        err = max(err, float((got[0] - want[0]).abs().max()))
+    k4 = {"max_abs_err": err}
+    tdist.barrier()
+    if rank == 0:  # timed while the other ranks wait, so the card is this rank's
+        k4["ms"] = statistics.mean(
+            cuda_ms(lambda: blend_kernel.blend_strip(*a, **k), 20) for a, k in phases)
+        k4["plain_ms"] = statistics.mean(
+            cuda_ms(lambda: blend_ops.blend_strip_plain(*a, **k), 1) for a, k in phases)
+    tdist.barrier()
+    torch.save({
+        "strip": strip.cpu(),
+        "stats": stats.reshape(4).tolist(),
+        "frame_ms": [s.elapsed_time(e) for s, e in events],
+        "passes": passes,
+        "launches": launches,
+        "k4": k4,
+        "host_staged": comm.host_staged,
+        "plan": tuple(plan),
+        "elements": [int((a[2][:, 1] - a[2][:, 0]).clamp(min=0).sum()) for a, _k in phases],
+    }, f"{outdir}/rank{rank}.pt")
+
+
+def run_dist(mult: float) -> dict:
+    """The distributed phase: each run of DIST_RUNS spawns its ranks, which
+    report back through files; their stats, launches, K4 checks and the
+    assembled image are checked here."""
+    name = DIST_SCENE
+    table, config, cam, _target, _frames = make_scene(name)
+    base = cam.position.copy()
+    renderer = Renderer(config, device="cuda")
+    renderer.init_for_scene(scaled(table, mult))
+    ref = renderer.draw(dist_camera(cam, base, DIST_LAST_STEP)).image.cpu()
+    del renderer, table
+    torch.cuda.empty_cache()
+
+    out = {}
+    for backend, world, warm, timed in DIST_RUNS:
+        what = f"dist {name} {backend} world {world}"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as outdir:
+            multihost.launch(dist_rank, world, backend=backend, init_method=f"file://{outdir}/store",
+                             args=(name, mult, warm, timed, outdir))
+            ranks = [torch.load(f"{outdir}/rank{r}.pt", weights_only=False) for r in range(world)]
+        wall_s = time.perf_counter() - t0
+        stats = np.array([r["stats"] for r in ranks], np.int64)
+        live, sent, recv, dropped = stats.T
+        if not (sent == live).all():
+            raise RuntimeError(f"{what}: slab drops, [live, sent, recv, dropped] per rank {stats}")
+        if recv.sum() != sent.sum() or dropped.sum() != 0:
+            raise RuntimeError(f"{what}: elements lost in the exchange or the strip windows: {stats}")
+        if recv.max() > 3 * max(recv.min(), 1):
+            raise RuntimeError(f"{what}: the depth bands did not balance the ranks: {stats}")
+        for k in ("expand_rows", "blend_strip"):
+            if min(r["launches"][k] for r in ranks) == 0:
+                raise RuntimeError(f"{what}: {k} was not launched on every rank")
+        img = torch.cat([r["strip"] for r in ranks])[: config.height, : config.width]
+        check_image(img, config, what)
+        vs_ref = u8_compare(img, ref)
+        if max(mx for mx, _ in vs_ref) > 1:
+            raise RuntimeError(f"{what}: vs the single-device frame 8-bit (max, share>1) per "
+                               f"channel {vs_ref}")
+        k4 = ranks[0]["k4"]
+        exchange = (f"host-staged gloo, {world} ranks on one card, not NCCL"
+                    if ranks[0]["host_staged"] else backend)
+        log(f"{what}: plan {ranks[0]['plan']}, {wall_s:.1f} s with spawn and set-up; exchange "
+            f"{exchange}; ms/frame per rank (median of {timed}) "
+            f"{[round(statistics.median(r['frame_ms']), 3) for r in ranks]}; per pass ms per rank "
+            + ", ".join(f"{p} {[round(r['passes'].get(p, 0.0), 3) for r in ranks]}"
+                        for p in DIST_PASSES)
+            + f"; [live, sent, recv, dropped] per rank {stats.tolist()}; strip slots per phase "
+            f"{[r['elements'] for r in ranks]}; launches per rank "
+            f"{[{k: r['launches'][k] for k in ('expand_rows', 'blend_strip')} for r in ranks]}")
+        log(f"check {what}: blend_strip == plain bit for bit (colour and log T) on the {world} "
+            f"phases of every rank, kernel {k4['ms']:.3f} ms vs plain {k4['plain_ms']:.3f} ms "
+            f"(mean per phase, rank 0 alone on the card); image vs the single-device uncapped "
+            f"frame float max |Δ| {float((img - ref).abs().max()):.3e}, 8-bit (max, share>1) per "
+            f"channel {vs_ref}")
+        out[(backend, world)] = {
+            "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("expand_rows",
+                                                                          "blend_strip")},
+            "blend_strip": {"max_abs_err": max(r["k4"]["max_abs_err"] for r in ranks),
+                            "ms": k4["ms"], "plain_ms": k4["plain_ms"]},
+        }
+    return out
+
+
 # Kernels that no path of the port runs (the JAX package has no production
 # caller either): held to their plain versions in the check phase only.
 OFF_PATH = ("compact_segments",)
@@ -653,6 +821,8 @@ META = {
                      "vk3dgaussiansplatting_tpu/ops/pallas/compact_kernel.py:120"),
     "compact_segments": ("vk3dgaussiansplatting_tpu_torch/csrc/compact.cu",
                          "vk3dgaussiansplatting_tpu/ops/pallas/compact_kernel.py:212"),
+    "blend_strip": ("vk3dgaussiansplatting_tpu_torch/csrc/blend_strip.cu",
+                    "vk3dgaussiansplatting_tpu/ops/pallas/blend_kernel.py:808"),
 }
 
 
@@ -683,7 +853,17 @@ def main() -> None:
             probe_motion(renderer, cam, name)
         del renderer, cap, out
         torch.cuda.empty_cache()
-    log(f"launches: {launches} over the uncapped and capped paths of {len(SCENES)} scenes")
+    dist_runs = run_dist(mults[DIST_SCENE])
+    for run in dist_runs.values():
+        for k, v in run["launches"].items():
+            launches[k] += v
+    # K4's line: the first run's (world 4, gloo), its error the worst of both.
+    results["dist"] = {"blend_strip": {
+        **next(iter(dist_runs.values()))["blend_strip"],
+        "max_abs_err": max(r["blend_strip"]["max_abs_err"] for r in dist_runs.values()),
+    }}
+    log(f"launches: {launches} over the uncapped and capped paths of {len(SCENES)} scenes and "
+        f"the distributed path's ranks")
     on_path = {k: v for k, v in launches.items() if k not in OFF_PATH}
     if min(on_path.values()) == 0:
         raise RuntimeError(f"a kernel of the paths was never launched: {launches}")

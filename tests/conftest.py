@@ -23,6 +23,12 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU mode); skips without one"
+    )
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(1234)

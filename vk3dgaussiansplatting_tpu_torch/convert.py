@@ -12,6 +12,7 @@ import torch
 from .core.config import RenderConfig, SortAlgorithm, SphericalHarmonicsMode
 from .models.gaussians import GaussianTable
 from .ops.capped import CapsState
+from .parallel.dist import DistConfig
 
 
 def table_from_jax(t, device="cpu") -> GaussianTable:
@@ -38,3 +39,8 @@ def caps_state_from_jax(state, device="cpu") -> CapsState:
         torch.from_numpy(np.asarray(getattr(state, f)).astype(np.int64)).to(device)
         for f in CapsState._fields
     ))
+
+
+def dist_config_from_jax(d) -> DistConfig:
+    """A JAX `DistConfig` (any object with its five fields) -> the port's."""
+    return DistConfig(*(int(getattr(d, f)) for f in DistConfig._fields))

@@ -1,8 +1,12 @@
 """Tiled front-to-back alpha blending — the RenderGaussians pass.
 
-Port of `vk3dgaussiansplatting_tpu.ops.blend`, plus the blend's plain
-PyTorch version, `blend_rows_plain`, which the CUDA blend kernel
-(ops/cuda/blend_kernel.py, csrc/blend.cu) is held against.
+Port of `vk3dgaussiansplatting_tpu.ops.blend`, plus the plain PyTorch
+versions of the CUDA blends (ops/cuda/blend_kernel.py): `blend_rows_plain`
+(K2, csrc/blend.cu), `blend_flat_plain` (K3, csrc/blend_flat.cu) and
+`blend_strip_plain` (K4, csrc/blend_strip.cu, the distributed frame's
+carry-aware strip blend).  JAX's log-space `blend_strip_colors_xla` has no
+counterpart: `blend_strip_plain` takes its place, as `blend_rows_plain`
+takes `blend_tiles_xla`'s.
 
 The reference (RenderGaussians.comp) gives each 16x16 tile one thread group
 and runs, per pixel, over the tile's sorted range:
@@ -138,43 +142,102 @@ def blend_flat_plain(
 
     Returns the [H, W, 3] image in [0, 1] (and T with `with_t`).
     """
-    device = table.device
+    num_tiles = config.num_tiles
+    p = config.tile_size**2
+    if cap:
+        ranges = torch.stack([ranges[:, 0], torch.minimum(ranges[:, 1], ranges[:, 0] + cap)], dim=1)
+    color, trans = _blend_batched(
+        table, index, ranges, config, 0,
+        torch.zeros((num_tiles, p, 3), device=table.device),
+        torch.ones((num_tiles, p), device=table.device),
+        gather=True,
+    )
+    img = assemble_tile_colors(color, config)
+    return (img, trans) if with_t else img
+
+
+def blend_strip_plain(
+    rows: torch.Tensor,
+    index: torch.Tensor,
+    ranges: torch.Tensor,
+    config: RenderConfig,
+    *,
+    tile_base: int,
+    carry_color: torch.Tensor,
+    carry_logt: torch.Tensor,
+    gather: bool = False,
+):
+    """Rank-stepped plain version of K4, the distributed frame's
+    carry-aware strip blend (the JAX `blend_strip_colors_pallas`,
+    blend_kernel.py:808, its `_blend_tile_kernel` with `with_carry`).
+
+    Strip tile i is the global tile `tile_base + i` (its pixel coordinates
+    come from that id).  It starts from the incoming colour and
+    T = exp(carry_logt), blends its [start, end) of the slots with K3's
+    batch-granular T (ops/blend.py:blend_flat_plain), and stops before any
+    batch, the first included, once all 256 pixels have T < stop: a tile
+    whose carry is already saturated passes colour and T through.
+
+    Args:
+      rows: [E, 10] float32 feature rows (pack_feature_table's columns), one
+        per slot; with `gather`, the [N, 10] per-gaussian table instead.
+      index: [E] int64 gaussian id per slot (SENTINEL, and slots >= E, are
+        dead); with `gather` the row of slot k is rows[index[k]].
+      ranges: [T_s, 2] int64 (start, end) of each strip tile into the slots.
+      tile_base: global id of the strip's first tile.
+      carry_color: [T_s, 256, 3] float32 colour entering the strip.
+      carry_logt: [T_s, 256] float32 log transmittance entering it.
+
+    Returns (colors [T_s, 256, 3] unclipped, logt_end [T_s, 256]); logt_end
+    is -inf where T reached 0.
+    """
+    color, trans = _blend_batched(
+        rows, index, ranges, config, tile_base,
+        carry_color.clone(), torch.exp(carry_logt), gather=gather,
+    )
+    return color, torch.log(trans)
+
+
+def _blend_batched(rows, index, ranges, config, tile_base, color, trans, *, gather):
+    """The rank-stepped loop of K3's and K4's plain versions: blends each
+    tile's range into `color` [T, 256, 3] and `trans` [T, 256] (both updated
+    in place and returned) with the TPU kernels' batch-granular T."""
+    device = rows.device
     ts = config.tile_size
     p = ts * ts
-    num_tiles = config.num_tiles
     stop = config.transmittance_stop
     cutoff = config.alpha_cutoff
     bk = config.blend_batch_k
     e = index.shape[0]
+    num_tiles = ranges.shape[0]
 
-    tiles = torch.arange(num_tiles, device=device)
+    tiles = tile_base + torch.arange(num_tiles, device=device)
     pix = torch.arange(p, device=device)
+    # Pixel p = v*ts + u of tile t (the GLSL local index layout).
     px = ((tiles % config.grid_width)[:, None] * ts + pix % ts).float()
     py = ((tiles // config.grid_width)[:, None] * ts + pix // ts).float()
 
     start = ranges[:, 0]
-    end = ranges[:, 1]
-    if cap:
-        end = torch.minimum(end, start + cap)
-    length = torch.clamp(end - start, min=0)
+    length = torch.clamp(ranges[:, 1] - start, min=0)
     astart = torch.div(start, ALIGN_K, rounding_mode="floor") * ALIGN_K
-    trans = torch.ones((num_tiles, p), device=device)
-    color = torch.zeros((num_tiles, p, 3), device=device)
     stopped = torch.zeros(num_tiles, dtype=torch.bool, device=device)
 
     max_len = int(length.max()) if num_tiles else 0
     for r in range(max_len):
         k = start + r
-        if r > 0:
-            boundary = (r < length) & (torch.remainder(k - astart, bk) == 0)
-            stopped |= boundary & (trans.amax(dim=1) < stop)
+        # Before every batch: leave once all 256 pixels are below the stop.
+        boundary = (r < length) & ((torch.remainder(k - astart, bk) == 0) | (r == 0))
+        stopped |= boundary & (trans.amax(dim=1) < stop)
         act = torch.nonzero((r < length) & ~stopped).squeeze(1)
         if act.numel() == 0:
             break
         kk = k[act]
         idx = index[torch.clamp(kk, max=e - 1)]
         live = (kk < e) & (idx != SENTINEL)
-        row = table[torch.where(live, idx, 0)]  # [A, 10]
+        if gather:
+            row = rows[torch.where(live, idx, 0)]  # [A, 10]
+        else:  # a dead slot's row may hold anything: read it as zeros
+            row = torch.where(live[:, None], rows[torch.clamp(kk, max=e - 1)], 0.0)
         gx, gy, a, b, c = (row[:, j : j + 1] for j in range(5))
         galpha = torch.where(live, row[:, 9], 0.0)[:, None]
 
@@ -187,8 +250,7 @@ def blend_flat_plain(
         w = torch.where(elig & (t_act >= stop), t_act * alpha, 0.0)
         color[act] += w[:, :, None] * row[:, None, 6:9]
         trans[act] = torch.where(elig, t_act * (1.0 - alpha), t_act)
-    img = assemble_tile_colors(color, config)
-    return (img, trans) if with_t else img
+    return color, trans
 
 
 def quantize_image(img: torch.Tensor) -> torch.Tensor:

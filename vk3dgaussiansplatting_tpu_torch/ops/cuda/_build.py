@@ -55,6 +55,13 @@ SIGNATURES = {
         [_P, _P, _I64, _P, _I32, _I64, _I32, _I32, _I32, _I32, _F32, _F32, _P, _P, _I32, _P],
         ctypes.c_int,
     ),
+    # rows, index, num_slots, gather, ranges, num_tiles, tile_base, batch_k,
+    # grid_w, alpha_cutoff, transmittance_stop, carry_color, carry_logt,
+    # out_color, out_logt, device, stream
+    "vk3d_blend_strip": (
+        [_P, _P, _I64, _I32, _P, _I32, _I32, _I32, _I32, _F32, _F32, _P, _P, _P, _P, _I32, _P],
+        ctypes.c_int,
+    ),
     # src, e, astarts, sbases, nt, ep, wmax, out, device, stream
     "vk3d_compact_runs": ([_P, _I64, _P, _P, _I64, _I64, _I64, _P, _I32, _P], ctypes.c_int),
     # src, e, src0, ep, out, device, stream

@@ -1,18 +1,21 @@
-"""Tiled front-to-back blends (K2, K3) — wrappers of csrc/blend.cu and
-csrc/blend_flat.cu.
+"""Tiled front-to-back blends (K2, K3, K4) — wrappers of csrc/blend.cu,
+csrc/blend_flat.cu and csrc/blend_strip.cu.
 
 K2 `blend_rows` replaces vk3dgaussiansplatting_tpu/ops/pallas/
 blend_kernel.py:blend_tiles_pallas and its feature table,
 `pack_feature_table`; K3 `blend_flat` replaces blend_flat_core /
 blend_tiles_pallas_flat, the capped path's blend with its per-pixel
-transmittance output.  Both kernels gather each element's row from the
-per-gaussian [N, 10] table by id, so there is no [16, E] sorted-order
-feature array as on the TPU.
+transmittance output; K4 `blend_strip` replaces blend_strip_colors_pallas,
+the distributed frame's carry-aware strip blend.  K2 and K3 gather each
+element's row from the per-gaussian [N, 10] table by id, and K4 reads the
+rows that the exchange routed in sorted order (or gathers by id too), so
+there is no [16, E] sorted-order feature array as on the TPU.
 
-`blend_rows` and `blend_flat` launch their CUDA kernels for CUDA tensors
-and run ops/blend.py:blend_rows_plain / blend_flat_plain for CPU tensors;
-they never fall back from one to the other.  `LAUNCHES` (K2) and
-`FLAT_LAUNCHES` (K3) count kernel launches.
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+version in ops/blend.py (blend_rows_plain, blend_flat_plain,
+blend_strip_plain) for CPU tensors; none falls back from one to the other.
+`LAUNCHES` (K2), `FLAT_LAUNCHES` (K3) and `STRIP_LAUNCHES` (K4) count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from . import _build
 
 LAUNCHES = 0
 FLAT_LAUNCHES = 0
+STRIP_LAUNCHES = 0
 
 
 def pack_feature_table(frame: GaussianFrameData) -> torch.Tensor:
@@ -176,3 +180,82 @@ def blend_tiles_flat(
     """K3 over a sorted frame (blend_tiles_pallas_flat's signature)."""
     return blend_flat(pack_feature_table(frame), elements.index, ranges, config,
                       cap=cap, with_t=with_t)
+
+
+def blend_strip(
+    rows: torch.Tensor,
+    index: torch.Tensor,
+    ranges: torch.Tensor,
+    config: RenderConfig,
+    *,
+    tile_base: int,
+    carry_color: torch.Tensor,
+    carry_logt: torch.Tensor,
+    gather: bool = False,
+):
+    """K4: blend strip tiles [tile_base, tile_base + T_s) from the incoming
+    (colour, log T) carry (ops/blend.py:blend_strip_plain has the semantics).
+
+    rows: [E, 10] float32 rows in slot order, or with `gather` the [N, 10]
+    per-gaussian table read by `index`; index: [E] int64 gaussian ids
+    (SENTINEL, and slots >= E, are dead); ranges: [T_s, 2] int64 into the
+    slots; carry_color: [T_s, 256, 3] float32; carry_logt: [T_s, 256]
+    float32.  Returns (colors [T_s, 256, 3] unclipped, logt_end [T_s, 256])."""
+    global STRIP_LAUNCHES
+    t_s = ranges.shape[0]
+    p = config.tile_size**2
+    if rows.dim() != 2 or rows.shape[1] != blend_ops.NUM_TABLE_COLS or rows.dtype != torch.float32:
+        raise ValueError(f"rows must be [E, 10] float32, got {tuple(rows.shape)} {rows.dtype}")
+    if index.dim() != 1 or index.dtype != torch.int64:
+        raise ValueError(f"index must be [E] int64, got {tuple(index.shape)} {index.dtype}")
+    if not gather and rows.shape[0] != index.shape[0]:
+        raise ValueError(f"{rows.shape[0]} rows for {index.shape[0]} slots")
+    if ranges.dim() != 2 or ranges.shape[1] != 2 or ranges.dtype != torch.int64:
+        raise ValueError(f"ranges must be [T_s, 2] int64, got {tuple(ranges.shape)} {ranges.dtype}")
+    if tuple(carry_color.shape) != (t_s, p, 3) or tuple(carry_logt.shape) != (t_s, p):
+        raise ValueError(
+            f"carries must be [{t_s}, {p}, 3] and [{t_s}, {p}], got "
+            f"{tuple(carry_color.shape)} and {tuple(carry_logt.shape)}"
+        )
+    if carry_color.dtype != torch.float32 or carry_logt.dtype != torch.float32:
+        raise ValueError("carries must be float32")
+    if not (0 <= tile_base and tile_base + t_s <= config.num_tiles):
+        raise ValueError(f"strip [{tile_base}, {tile_base + t_s}) is outside the "
+                         f"{config.num_tiles} tiles")
+    if config.tile_size != 16:
+        raise ValueError("the blend kernel is built for 16x16 tiles")
+    if config.blend_batch_k <= 0 or config.blend_batch_k % blend_ops.ALIGN_K:
+        raise ValueError(f"blend_batch_k must be a positive multiple of {blend_ops.ALIGN_K}")
+    if len({x.device for x in (rows, index, ranges, carry_color, carry_logt)}) != 1:
+        raise ValueError("rows, index, ranges and carries must be on one device")
+    kw = dict(tile_base=tile_base, carry_color=carry_color, carry_logt=carry_logt, gather=gather)
+    if rows.device.type == "cpu":
+        return blend_ops.blend_strip_plain(rows, index, ranges, config, **kw)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    rows, index, ranges = rows.contiguous(), index.contiguous(), ranges.contiguous()
+    carry_color, carry_logt = carry_color.contiguous(), carry_logt.contiguous()
+    colors = torch.empty_like(carry_color)
+    logt = torch.empty_like(carry_logt)
+    err = _build.load_library().vk3d_blend_strip(
+        rows.data_ptr(),
+        index.data_ptr(),
+        index.shape[0],
+        int(gather),
+        ranges.data_ptr(),
+        t_s,
+        tile_base,
+        config.blend_batch_k,
+        config.grid_width,
+        config.alpha_cutoff,
+        config.transmittance_stop,
+        carry_color.data_ptr(),
+        carry_logt.data_ptr(),
+        colors.data_ptr(),
+        logt.data_ptr(),
+        rows.device.index,
+        torch.cuda.current_stream(rows.device).cuda_stream,
+    )
+    _build.check_launch(err, "blend_strip")
+    STRIP_LAUNCHES += 1
+    return colors, logt

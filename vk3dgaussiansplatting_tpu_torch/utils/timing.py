@@ -12,7 +12,10 @@ either blend (K2, or the whole static-cap blend) or the temporal capped
 passes: layout (the K1 chunk map, K5 compaction and the feature table),
 blend (K3 with its transmittance), policy (validation and the caps and
 threshold update, up to the branch read-back) and patch (the patch pass or
-full fallback; empty on fast-path frames).
+full fallback; empty on fast-path frames).  The distributed frame
+(parallel/dist.py): keygen, bucket, exchange (the collectives, with the
+copies through host memory where gloo serves a GPU), sort, ranges and blend
+(K4, once per systolic phase).
 """
 
 from __future__ import annotations
@@ -45,6 +48,15 @@ class CudaPassTimer:
         torch.cuda.synchronize()
         return {
             name: statistics.median(s.elapsed_time(e) for s, e in pairs)
+            for name, pairs in self._events.items()
+        }
+
+    def totals(self) -> dict[str, float]:
+        """Synchronize and return each pass's summed duration in ms (for
+        passes entered several times a frame, as in the distributed frame)."""
+        torch.cuda.synchronize()
+        return {
+            name: sum(s.elapsed_time(e) for s, e in pairs)
             for name, pairs in self._events.items()
         }
 
