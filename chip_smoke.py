@@ -11,15 +11,20 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            started together (seconds, ptxas report)
   fixture  the fixture scenes on the card (kernels) against the CPU (plain
            versions): element counts equal, 8-bit ±1 per channel
+  check    K1 against its plain version bit for bit on edge cases (zero
+           counts, a 12,000-slot gaussian, 1.1M zero counts in a row,
+           total > E, E % 4 != 0, N = 0)
   scene    train7k_720p: the benchmark stand-in cloud (559,263 gaussians,
            1280x720, capacity 4,245,663), scale calibrated to 3,487,911 live
            elements ±3%; 3 warm-up + 20 timed frames with the camera nudged
-           each frame; median ms/frame and per-pass ms from CUDA events
+           each frame; median ms/frame and per-pass ms from CUDA events; K1
+           and K2 launch once a frame, and no feature table is built
   check    on that scene's last frame: keygen/sort/ranges on the card ==
-           on the CPU bit for bit; K1 == its plain version bit for bit (and
-           on edge cases); K2 vs its plain version per channel 8-bit
-           max |Δ| <= 2 with |Δ| > 1 on at most 1e-4 of pixel-channels;
-           kernel and plain times
+           on the CPU bit for bit; K1 == its plain version bit for bit; K2
+           (blend_tiles on the frame's own GaussianFrameData) vs its plain
+           version per channel 8-bit max |Δ| <= 2 with |Δ| > 1 on at most
+           1e-4 of pixel-channels; kernel, plain and library times and the
+           bound
   scene    garden30k_1080p: 5,834,784 gaussians at 1920x1080, capacity
            14,190,624, calibrated to 13,098,506 live ±3%; 3 warm-up + 10
            timed frames; the same checks of K1 and K2
@@ -60,8 +65,14 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            launches, and its check-phase comparison calls apart
            ("check_launches", "on_path": false)
 
-Then one JSON line with each kernel's launches, error and times, and last
-{"ok": true, "device": {...}}.
+Each kernel's bound is the larger of its bytes over 3.35 TB/s (each input
+read once, each output written once, at this run's shapes) and its float32
+operations over 67 TFLOP/s; for the blends the work is what the inputs need
+(`blend_work`: each pixel's pairs up to its saturating element).
+
+Then one JSON line with each kernel's launches, error, times (kernel,
+plain, one PyTorch call where one computes the same function), bound and
+launches per frame on each path, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -124,6 +135,20 @@ DIST_RUNS = (("gloo", 4, 1, 3), ("nccl", 1, 1, 1))
 DIST_NUDGE = 1e-3
 DIST_LAST_STEP = 3
 DIST_PASSES = ("keygen", "bucket", "exchange", "sort", "ranges", "blend")
+# Published peaks of one H100 SXM (NVIDIA's data sheet), for each kernel's
+# bound: the larger of its bytes over the memory rate and its operations
+# over the float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# Float32 operations per (pixel, element) pair a blend evaluates: dx, dy,
+# f (8), alpha (1), the eligibility tests (2), and for an eligible element
+# T*alpha, three colour FMAs and T *= 1 - alpha (8).  expf's own
+# instructions are not counted, so the bound stays a lower bound.
+FLOPS_PER_PAIR = 20
+# Bytes of one gaussian's row as K2 reads it (screen_pos 8, cov_inv 12,
+# color_alpha 16), and of a pack_feature_table row (K3, K4).
+K2_ROW_BYTES = 36
+TABLE_ROW_BYTES = 40
 
 # Launch counters of the kernel wrappers.
 COUNTERS = {
@@ -220,13 +245,15 @@ def calibrate(table: GaussianTable, cam: Camera, config: RenderConfig, target: i
 
 class Capture:
     """Records the arguments the main path hands each kernel wrapper (and
-    the capped blend's finish phase): `args[name]` is the last call,
-    `calls[name]` every call since `new_frame()`."""
+    the capped blend's finish phase, and the feature-table build):
+    `args[name]` is the last call, `calls[name]` every call since
+    `new_frame()`, `counts[name]` the calls since the capture began."""
 
     TARGETS = (
         (expand_kernel, "expand_rows"),
         (expand_kernel, "expand_rows_streamed"),
-        (blend_kernel, "blend_rows"),
+        (blend_kernel, "blend_tiles"),
+        (blend_kernel, "pack_feature_table"),
         (blend_kernel, "blend_flat"),
         (blend_kernel, "blend_strip"),
         (compact_kernel, "compact_runs"),
@@ -236,6 +263,7 @@ class Capture:
     def __init__(self):
         self.args = {}
         self.calls = {}
+        self.counts = {}
         self._saved = []
 
     def new_frame(self) -> None:
@@ -248,6 +276,7 @@ class Capture:
             def spy(*a, _real=real, _attr=attr, **k):
                 self.args[_attr] = (a, k)
                 self.calls.setdefault(_attr, []).append((a, k))
+                self.counts[_attr] = self.counts.get(_attr, 0) + 1
                 return _real(*a, **k)
 
             self._saved.append((mod, attr, real))
@@ -270,6 +299,106 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": int(nbytes), "bound_ops": int(ops)}
+
+
+def expand_bound(cols: torch.Tensor, counts: torch.Tensor, capacity: int) -> dict:
+    """K1's bound: the counts read, the column values of the rows that own
+    a live slot read once, the [C, E] output and the total written."""
+    c64 = counts.to(torch.int64)
+    starts = torch.cumsum(c64, 0) - c64
+    owning = int(((c64 > 0) & (starts < capacity)).sum())
+    ncols, n = cols.shape
+    return bound(4 * ncols * owning + counts.element_size() * n + 4 * ncols * capacity + 8, 0)
+
+
+def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, tile_base=0,
+               trans=None, gather=True):
+    """What a blend of these inputs must do at least, counted on the
+    frame's own inputs with a rank-stepped loop in the style of
+    ops/blend.py:blend_rows_plain: each pixel's (pixel, element) pairs up to
+    and including its saturating element (T < stop), or to its range's end.
+    A pixel whose incoming T is below the stop needs none; with `in_image`,
+    pixels outside the image need none (K2 writes only the image).
+
+    Returns {"pairs": P, "slots": slots read, per tile up to its last needed
+    element, "rows": distinct gaussian ids among those slots, "warp_steps":
+    the sum over 32-pixel warps of their longest pixel's pairs (what a warp
+    per 32 pixels must step through), "longest": the most slots one tile
+    needs}."""
+    device = rows.device
+    ts = config.tile_size
+    p = ts * ts
+    stop, cutoff = config.transmittance_stop, config.alpha_cutoff
+    num_tiles = ranges.shape[0]
+    e = index.shape[0]
+    tiles = tile_base + torch.arange(num_tiles, device=device)
+    pix = torch.arange(p, device=device)
+    px_i = (tiles % config.grid_width)[:, None] * ts + pix % ts
+    py_i = (tiles // config.grid_width)[:, None] * ts + pix // ts
+    px, py = px_i.float(), py_i.float()
+    start = ranges[:, 0]
+    length = torch.clamp(ranges[:, 1] - start, min=0)
+    trans = torch.ones((num_tiles, p), device=device) if trans is None else trans.clone()
+    done = trans < stop
+    if in_image:
+        done |= (px_i >= config.width) | (py_i >= config.height)
+    pairs = torch.zeros((num_tiles, p), dtype=torch.int64, device=device)
+    for r in range(int(length.max()) if num_tiles else 0):
+        act = torch.nonzero((r < length) & ~done.all(dim=1)).squeeze(1)
+        if act.numel() == 0:
+            break
+        kk = start[act] + r
+        idx = index[torch.clamp(kk, max=e - 1)]
+        live = (kk < e) & (idx != SENTINEL)
+        if gather:
+            row = rows[torch.where(live, idx, 0)]
+        else:
+            row = torch.where(live[:, None], rows[torch.clamp(kk, max=e - 1)], 0.0)
+        gx, gy, a, b, c = (row[:, j : j + 1] for j in range(5))
+        galpha = torch.where(live, row[:, 9], 0.0)[:, None]
+        dx = gx - px[act]
+        dy = py[act] - gy
+        f = (a * dx * dx + c * dy * dy) + b * dx * dy
+        alpha = galpha * torch.exp(f)
+        todo = ~done[act]
+        pairs[act] += todo.to(torch.int64)
+        t_act = trans[act]
+        t_new = torch.where((f <= 0.0) & (alpha >= cutoff) & todo, t_act * (1.0 - alpha), t_act)
+        trans[act] = t_new
+        done[act] |= t_new < stop
+    per_tile = pairs.amax(dim=1)
+    n_slots = int(per_tile.sum())
+    first = torch.repeat_interleave(start, per_tile)
+    offset = torch.arange(n_slots, device=device) - torch.repeat_interleave(
+        torch.cumsum(per_tile, 0) - per_tile, per_tile)
+    slot = first + offset
+    ids = index[torch.clamp(slot, max=e - 1)]
+    ids = ids[(slot < e) & (ids != SENTINEL)]
+    return {"pairs": int(pairs.sum()), "slots": n_slots, "rows": int(torch.unique(ids).numel()),
+            "warp_steps": int(pairs.reshape(num_tiles, p // 32, 32).amax(dim=2).sum()),
+            "longest": int(per_tile.max()) if num_tiles else 0}
+
+
+def device_breakdown(fn, iters: int = 10) -> dict:
+    """Device ms per call of each kernel that `fn` launches, from
+    torch.profiler's CUDA activity."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key[:60]: round(ev.self_device_time_total / 1e3 / iters, 4)
+            for ev in prof.key_averages() if ev.self_device_time_total > 0}
 
 
 def check_image(img: torch.Tensor, config: RenderConfig, what: str) -> None:
@@ -338,9 +467,14 @@ def run_scene(name: str):
             if t is not None:
                 frame_ms.append((start, end))
         torch.cuda.synchronize()
-    launches = {k: v for k, v in read_counts().items() if k in ("expand_rows", "blend_tiles")}
-    if min(launches.values()) == 0:
-        raise RuntimeError(f"{name}: a kernel of the path was not launched: {launches}")
+    drawn = WARMUP_FRAMES + frames
+    counts = read_counts()
+    launches = {k: v for k, v in counts.items() if k in ("expand_rows", "blend_tiles")}
+    if any(v != drawn for v in launches.values()):
+        raise RuntimeError(f"{name}: K1 and K2 must launch once a frame, {drawn} frames: {launches}")
+    tables = cap.counts.get("pack_feature_table", 0)
+    if tables:
+        raise RuntimeError(f"{name}: the uncapped frame built {tables} feature tables")
     frame_ms = [s.elapsed_time(e) for s, e in frame_ms]
     passes = timer.summary()
     check_image(out.image, config, name)
@@ -352,8 +486,9 @@ def run_scene(name: str):
         f"ms/frame median {statistics.median(frame_ms):.3f} "
         f"(min {min(frame_ms):.3f}, max {max(frame_ms):.3f}, {frames} frames); per pass ms "
         + ", ".join(f"{k} {passes[k]:.3f}" for k in ("keygen", "expand", "sort", "ranges", "blend"))
-        + f"; launches {launches}")
-    return renderer, cam, cap.args, launches, mult
+        + f"; launches {launches}; feature tables built {tables}")
+    per_frame = {k: v / drawn for k, v in counts.items()}
+    return renderer, cam, cap.args, launches, mult, per_frame, passes
 
 
 def check_elements_vs_cpu(renderer: Renderer, cam: Camera) -> None:
@@ -383,6 +518,10 @@ def check_expand_edge_cases() -> None:
     counts[rng.random(700) < 0.4] = 0
     long_run = np.ones(3000, np.int64)
     long_run[100:2500] = 0
+    huge = np.zeros(2000, np.int64)
+    huge[[3, 1000]] = [12_000, 5]  # a gaussian of >= 10,000 slots spans many blocks
+    sparse = np.zeros(1_100_000, np.int64)  # a run of >= 1,000,000 zero counts
+    sparse[[0, 1_099_999]] = [3, 4]
     cases = [
         (counts, int(counts.sum()) + 300),
         (long_run, 1024),
@@ -390,6 +529,11 @@ def check_expand_edge_cases() -> None:
         (np.array([5, 0, 3, 0, 0, 2] * 10), 1000),
         (np.zeros(600, np.int64), 512),
         (rng.integers(0, 4000, size=50), 40_000),
+        (huge, 12_005),
+        (huge, 10_001),  # E % 4 != 0, cut inside the long run
+        (sparse, 9),
+        (sparse, 1027),  # E % 4 != 0 with a dead tail
+        (np.zeros(0, np.int64), 64),  # N = 0
     ]
     for counts, capacity in cases:
         n = len(counts)
@@ -402,10 +546,13 @@ def check_expand_edge_cases() -> None:
         want, want_total = expand_kernel.expand_rows_plain(cols, c, capacity)
         if not torch.equal(got, want) or int(total) != int(want_total):
             raise RuntimeError(f"expand_rows edge case (n={n}, capacity={capacity}) differs")
+    log(f"check: expand_rows bit-exact on {len(cases)} edge cases (a 12,000-slot gaussian, "
+        f"1.1M zero counts, E % 4 != 0, total > E, N = 0)")
 
 
-def check_kernels(args, config: RenderConfig, name: str) -> dict:
-    """Each kernel against its plain version on the frame's own inputs."""
+def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
+    """Each kernel against its plain version on the frame's own inputs, with
+    its bound and the library call's time."""
     (cols, counts, capacity), _ = args["expand_rows"]
     got, total = expand_kernel.expand_rows(cols, counts, capacity)
     want, want_total = expand_kernel.expand_rows_plain(cols, counts, capacity)
@@ -418,11 +565,17 @@ def check_kernels(args, config: RenderConfig, name: str) -> dict:
         "max_abs_err": int((got.to(torch.int64) - want.to(torch.int64)).abs().max()),
         "ms": cuda_ms(lambda: expand_kernel.expand_rows(cols, counts, capacity), 20),
         "plain_ms": cuda_ms(lambda: expand_kernel.expand_rows_plain(cols, counts, capacity), 3),
+        "library_ms": cuda_ms(lambda: torch.repeat_interleave(cols, counts, dim=1), 10),
+        # The wrapper's scan and the partition search, inside "ms".
+        "scan_ms": cuda_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int64), 20),
+        "device_ms": device_breakdown(lambda: expand_kernel.expand_rows(cols, counts, capacity)),
+        **expand_bound(cols, counts, capacity),
     }
 
-    (table, index, rng_, _cfg), _ = args["blend_rows"]
-    img = blend_kernel.blend_rows(table, index, rng_, config)
-    ref = blend_ops.blend_rows_plain(table, index, rng_, config)
+    (elements, rng_, frame, _cfg), _ = args["blend_tiles"]
+    img = blend_kernel.blend_tiles(elements, rng_, frame, config)
+    table = blend_kernel.pack_feature_table(frame)
+    ref = blend_ops.blend_rows_plain(table, elements.index, rng_, config)
     check_image(img, config, f"{name} kernel blend")
     check_image(ref, config, f"{name} plain blend")
     per_ch = u8_compare(img, ref)
@@ -430,16 +583,27 @@ def check_kernels(args, config: RenderConfig, name: str) -> dict:
         if mx > K2_MAX_U8 or frac > K2_MAX_FRAC_GT1:
             raise RuntimeError(f"{name}: blend channel {ch}: 8-bit max |Δ| {mx}, "
                                f"share > 1 {frac:.2e}")
+    work = blend_work(table, elements.index, rng_, config, in_image=True)
     k2 = {
         "max_abs_err": float((img - ref).abs().max()),
         "u8": per_ch,
-        "ms": cuda_ms(lambda: blend_kernel.blend_rows(table, index, rng_, config), 20),
-        "plain_ms": cuda_ms(lambda: blend_ops.blend_rows_plain(table, index, rng_, config), 1),
+        "ms": cuda_ms(lambda: blend_kernel.blend_tiles(elements, rng_, frame, config), 20),
+        "plain_ms": cuda_ms(lambda: blend_ops.blend_rows_plain(
+            blend_kernel.pack_feature_table(frame), elements.index, rng_, config), 1),
+        "library_ms": None,
+        "blend_section_ms": passes["blend"],
+        "work": work,
+        **bound(8 * work["slots"] + K2_ROW_BYTES * work["rows"] + 16 * config.num_tiles
+                + 12 * config.width * config.height, FLOPS_PER_PAIR * work["pairs"]),
     }
     log(f"check {name}: expand_rows bit-exact ({live} live of {capacity}), kernel "
-        f"{k1['ms']:.3f} ms vs plain {k1['plain_ms']:.3f} ms; blend_tiles float max |Δ| "
-        f"{k2['max_abs_err']:.3e}, 8-bit (max, share>1) per channel {per_ch}, kernel "
-        f"{k2['ms']:.3f} ms vs plain {k2['plain_ms']:.3f} ms")
+        f"{k1['ms']:.3f} ms (its scan {k1['scan_ms']:.3f}) vs plain {k1['plain_ms']:.3f} ms, "
+        f"kernels {k1['device_ms']}, repeat_interleave "
+        f"{k1['library_ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}, "
+        f"{k1['bound_bytes']} B); blend_tiles float max |Δ| {k2['max_abs_err']:.3e}, 8-bit "
+        f"(max, share>1) per channel {per_ch}, kernel {k2['ms']:.3f} ms vs plain "
+        f"{k2['plain_ms']:.3f} ms, blend section {passes['blend']:.3f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}, {k2['bound_bytes']} B; {work})")
     return {"expand_rows": k1, "blend_tiles": k2}
 
 
@@ -503,6 +667,7 @@ def run_capped(name: str, mult: float):
             capped_ops.PATH_COUNTS[k] = 0
         timer = CudaPassTimer()
         events, oks = [], []
+        before = read_counts()
         for _ in range(frames):
             cap.new_frame()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -513,6 +678,7 @@ def run_capped(name: str, mult: float):
             oks.append(out.ok)
         torch.cuda.synchronize()
     launches = read_counts()
+    per_frame = {k: (launches[k] - before[k]) / frames for k in launches}
     path_kernels = ["expand_rows", "blend_flat", "compact_runs"]
     if chained:
         path_kernels.append("expand_rows_streamed")
@@ -536,8 +702,9 @@ def run_capped(name: str, mult: float):
         + ", ".join(f"{k} {passes[k]:.3f}" for k in
                     ("keygen", "expand", "sort", "ranges", "layout", "blend", "policy", "patch"))
         + f"; frames fast/patch/full {dict(capped_ops.PATH_COUNTS)}; ok {oks}; host syncs per "
-        f"frame {syncs / SYNC_FRAMES:g} {sync_lines}; launches {launches}")
-    return renderer, cam, cap, out, launches
+        f"frame {syncs / SYNC_FRAMES:g} {sync_lines}; launches {launches}; per timed frame "
+        f"{per_frame}")
+    return renderer, cam, cap, out, launches, per_frame
 
 
 def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) -> dict:
@@ -570,8 +737,14 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
             raise RuntimeError(f"{name}: {what} from K3's T differs from the plain version's "
                                f"({int((a != b).sum())} tiles)")
     t_err = float((t_k - t_p).abs().max())
+    work = blend_work(lay.table, lay.gid, pranges, config, in_image=False)
+    nt = config.num_tiles
     res["blend_flat"] = {
         "max_abs_err": float((img - ref).abs().max()),
+        "library_ms": None,
+        "work": work,
+        **bound(8 * work["slots"] + TABLE_ROW_BYTES * work["rows"] + 16 * nt + 12 * config.width
+                * config.height + 4 * nt * config.tile_size**2, FLOPS_PER_PAIR * work["pairs"]),
         "ms": cuda_ms(lambda: blend_kernel.blend_flat(lay.table, lay.gid, pranges, config,
                                                       with_t=True), 20),
         "plain_ms": cuda_ms(lambda: blend_ops.blend_flat_plain(lay.table, lay.gid, pranges, config,
@@ -587,6 +760,8 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         raise RuntimeError(f"{name}: compact_runs differs on live lanes")
     res["compact_runs"] = {
         "max_abs_err": int((got[live] - want[live]).abs().max()),
+        "library_ms": None,
+        **bound(16 * ep5 + 16 * starts.shape[0], 0),
         "ms": cuda_ms(lambda: compact_kernel.compact_runs(src, starts, sbases, ep5, wmax), 20),
         "plain_ms": cuda_ms(lambda: compact_kernel.compact_runs_plain(src, starts, sbases, ep5,
                                                                      wmax), 1),
@@ -604,6 +779,8 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
     res["compact_segments"] = {
         "check_launches": check_launches,
         "max_abs_err": int((got6 - want6).abs().max()),
+        "library_ms": None,
+        **bound(16 * ep5 + 8 * src0.shape[0], 0),
         "ms": cuda_ms(lambda: compact_kernel.compact_segments(src, src0, ep5), 20),
         "plain_ms": cuda_ms(lambda: compact_kernel.compact_segments_plain(src, src0, ep5), 3),
     }
@@ -620,13 +797,13 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         n_live = min(int(total), capacity)
         if int(total) != int(want_total) or not torch.equal(g[:, :n_live], w[:, :n_live]):
             raise RuntimeError(f"{name}: {key} differs from its plain version")
-        if key == "expand_rows_streamed":
-            res[key] = {
-                "max_abs_err": int((g.to(torch.int64) - w.to(torch.int64)).abs().max()),
-                "ms": cuda_ms(lambda: fn(cols, counts, capacity), 20),
-                "plain_ms": cuda_ms(lambda: expand_kernel.expand_rows_plain(cols, counts,
-                                                                           capacity), 3),
-            }
+        res[key if key == "expand_rows_streamed" else "chunk_map"] = {
+            "max_abs_err": int((g.to(torch.int64) - w.to(torch.int64)).abs().max()),
+            "ms": cuda_ms(lambda: fn(cols, counts, capacity), 20),
+            "plain_ms": cuda_ms(lambda: expand_kernel.expand_rows_plain(cols, counts, capacity), 3),
+            "library_ms": cuda_ms(lambda: torch.repeat_interleave(cols, counts, dim=1), 10),
+            **expand_bound(cols, counts, capacity),
+        }
 
     # The capped frame against the uncapped K2 frame of the same camera.
     view, proj = cam.matrices()
@@ -643,9 +820,13 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         f"live lanes of {ep5}, {res['compact_runs']['ms']:.3f} ms vs plain "
         f"{res['compact_runs']['plain_ms']:.3f}; compact_segments bit-exact, "
         f"{res['compact_segments']['ms']:.3f} ms vs plain {res['compact_segments']['plain_ms']:.3f}"
-        + (f"; expand_rows_streamed bit-exact, {res['expand_rows_streamed']['ms']:.3f} ms vs "
-           f"plain {res['expand_rows_streamed']['plain_ms']:.3f}"
-           if "expand_rows_streamed" in res else "")
+        + f"; K3 bound {res['blend_flat']['bound_ms']:.4f} ms ({res['blend_flat']['bound_by']}, "
+        f"{work}); K5 bound "
+        f"{res['compact_runs']['bound_ms']:.4f}, K6 bound {res['compact_segments']['bound_ms']:.4f}"
+        + "".join(f"; {k} bit-exact, {res[k]['ms']:.3f} ms vs plain {res[k]['plain_ms']:.3f}, "
+                  f"repeat_interleave {res[k]['library_ms']:.3f}, bound {res[k]['bound_ms']:.4f} "
+                  f"({res[k]['bound_by']})"
+                  for k in ("chunk_map", "expand_rows_streamed") if k in res)
         + f"; capped vs uncapped K2 frame 8-bit (max, share>1) per channel {vs_k2}")
     return res
 
@@ -726,6 +907,18 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
             cuda_ms(lambda: blend_kernel.blend_strip(*a, **k), 20) for a, k in phases)
         k4["plain_ms"] = statistics.mean(
             cuda_ms(lambda: blend_ops.blend_strip_plain(*a, **k), 1) for a, k in phases)
+        # The bound of the mean phase: each phase's slots (routed rows are
+        # read per slot, gathered rows per gaussian), ranges, and the carry
+        # in and out, 16 B a pixel each way.
+        work = []
+        for (rows, index, ranges_, cfg), k in phases:
+            w = blend_work(rows, index, ranges_, cfg, in_image=False, tile_base=k["tile_base"],
+                           trans=torch.exp(k["carry_logt"]), gather=k["gather"])
+            row_bytes = TABLE_ROW_BYTES * (w["rows"] if k["gather"] else w["slots"])
+            work.append((8 * w["slots"] + row_bytes + 16 * ranges_.shape[0]
+                         + 32 * k["carry_logt"].numel(), FLOPS_PER_PAIR * w["pairs"]))
+        k4.update(bound(statistics.mean(b for b, _ in work), statistics.mean(o for _, o in work)))
+        k4["library_ms"] = None
     tdist.barrier()
     torch.save({
         "strip": strip.cpu(),
@@ -791,15 +984,17 @@ def run_dist(mult: float) -> dict:
             f"{[r['elements'] for r in ranks]}; launches per rank "
             f"{[{k: r['launches'][k] for k in ('expand_rows', 'blend_strip')} for r in ranks]}")
         log(f"check {what}: blend_strip == plain bit for bit (colour and log T) on the {world} "
-            f"phases of every rank, kernel {k4['ms']:.3f} ms vs plain {k4['plain_ms']:.3f} ms "
-            f"(mean per phase, rank 0 alone on the card); image vs the single-device uncapped "
+            f"phases of every rank, kernel {k4['ms']:.3f} ms vs plain {k4['plain_ms']:.3f} ms, "
+            f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}) (mean per phase, rank 0 alone on "
+            f"the card); image vs the single-device uncapped "
             f"frame float max |Δ| {float((img - ref).abs().max()):.3e}, 8-bit (max, share>1) per "
             f"channel {vs_ref}")
         out[(backend, world)] = {
             "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("expand_rows",
                                                                           "blend_strip")},
-            "blend_strip": {"max_abs_err": max(r["k4"]["max_abs_err"] for r in ranks),
-                            "ms": k4["ms"], "plain_ms": k4["plain_ms"]},
+            "blend_strip": {**k4, "max_abs_err": max(r["k4"]["max_abs_err"] for r in ranks)},
+            "per_rank_frame": {k: statistics.mean(r["launches"][k] for r in ranks) / (warm + timed)
+                               for k in COUNTERS},
         }
     return out
 
@@ -834,18 +1029,21 @@ def main() -> None:
 
     results = {}
     launches = dict.fromkeys(COUNTERS, 0)
+    per_frame = {}  # path -> kernel -> launches a frame
     mults = {}
     for i, name in enumerate(SCENES):
-        renderer, cam, args, scene_launches, mults[name] = run_scene(name)
+        renderer, cam, args, scene_launches, mults[name], per_frame["uncapped"], passes = (
+            run_scene(name))
         if i == 0:
             check_elements_vs_cpu(renderer, cam)
-        results[name] = check_kernels(args, renderer.config, name)
+        results[name] = check_kernels(args, renderer.config, name, passes)
         for k, v in scene_launches.items():
             launches[k] += v
         del renderer, args
         torch.cuda.empty_cache()
     for name in SCENES:
-        renderer, cam, cap, out, path_launches = run_capped(name, mults[name])
+        renderer, cam, cap, out, path_launches, capped_frame = run_capped(name, mults[name])
+        per_frame["capped_steady" if renderer._plan is not None else "capped_temporal"] = capped_frame
         for k in ("expand_rows", "expand_rows_streamed", "blend_flat", "compact_runs"):
             launches[k] += path_launches[k]
         results[name].update(check_capped(renderer, cam, cap, out, name))
@@ -858,19 +1056,23 @@ def main() -> None:
         for k, v in run["launches"].items():
             launches[k] += v
     # K4's line: the first run's (world 4, gloo), its error the worst of both.
+    first_run = next(iter(dist_runs.values()))
+    per_frame["distributed_per_rank"] = first_run["per_rank_frame"]
     results["dist"] = {"blend_strip": {
-        **next(iter(dist_runs.values()))["blend_strip"],
+        **first_run["blend_strip"],
         "max_abs_err": max(r["blend_strip"]["max_abs_err"] for r in dist_runs.values()),
     }}
     log(f"launches: {launches} over the uncapped and capped paths of {len(SCENES)} scenes and "
-        f"the distributed path's ranks")
+        f"the distributed path's ranks; per frame by path {per_frame}")
     on_path = {k: v for k, v in launches.items() if k not in OFF_PATH}
     if min(on_path.values()) == 0:
         raise RuntimeError(f"a kernel of the paths was never launched: {launches}")
 
+    # Each kernel's times and bound from the largest inputs it ran on (the
+    # distributed run for K4, garden for the rest where it ran).
     kernels = []
     for k, (src, rep) in META.items():
-        first = next(r[k] for r in results.values() if k in r)
+        scene, res = next((s, r[k]) for s, r in reversed(results.items()) if k in r)
         entry = {
             "name": k,
             "route": "cuda",
@@ -879,8 +1081,13 @@ def main() -> None:
             "launches": launches[k],
             "on_path": k not in OFF_PATH,
             "max_abs_err": max(r[k]["max_abs_err"] for r in results.values() if k in r),
-            "ms": first["ms"],
-            "plain_ms": first["plain_ms"],
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"],
+            "launches_per_frame": {path: counts[k] for path, counts in per_frame.items()},
+            "inputs": DIST_SCENE + " distributed" if scene == "dist" else scene,
         }
         if k in OFF_PATH:
             entry["check_launches"] = sum(r[k]["check_launches"] for r in results.values()

@@ -111,13 +111,17 @@ def test_quantize_and_assemble_match_jax():
 
 
 def test_blend_rejects_bad_inputs():
+    """blend_tiles (K2) rejects a frame row of the wrong width, int32 ids and
+    a short ranges table."""
     cfg = convert.config_from_jax(CONFIG)
-    table = torch.zeros((4, 10))
+    frame = tkg.GaussianFrameData(torch.zeros((4, 4)), torch.zeros((4, 3)), torch.zeros((4, 3)),
+                                  torch.zeros((4, 2)))
     index = torch.zeros(8, dtype=torch.int64)
+    elements = tkg.SortElements(index, index, index, torch.zeros((), dtype=torch.int64))
     ranges = torch.zeros((cfg.num_tiles, 2), dtype=torch.int64)
     with pytest.raises(ValueError):
-        tbk.blend_rows(table[:, :9], index, ranges, cfg)
+        tbk.blend_tiles(elements, ranges, frame._replace(color_alpha=frame.color_alpha[:, :3]), cfg)
     with pytest.raises(ValueError):
-        tbk.blend_rows(table, index.to(torch.int32), ranges, cfg)
+        tbk.blend_tiles(elements._replace(index=index.to(torch.int32)), ranges, frame, cfg)
     with pytest.raises(ValueError):
-        tbk.blend_rows(table, index, ranges[:-1], cfg)
+        tbk.blend_tiles(elements, ranges[:-1], frame, cfg)

@@ -1,8 +1,10 @@
 // Tiled front-to-back alpha blend — the RenderGaussians pass.
 //
-// Replaces the TPU kernel vk3dgaussiansplatting_tpu/ops/pallas/blend_kernel.py
-// : blend_tiles_pallas (_blend_tile_kernel), and the [E, 16] feature
-// pre-gather it needs outside the kernel (_build_features).
+// Replaces the TPU entry point vk3dgaussiansplatting_tpu/ops/pallas/
+// blend_kernel.py : blend_tiles_pallas (_blend_tile_kernel) together with
+// the feature build it runs inside the call (_build_features,
+// pack_feature_table): the kernel reads each element's row of the frame
+// data itself, so no [N, 10] table is written and read back.
 //
 // Per 16x16 screen tile, per pixel p = v*16 + u, over the tile's sorted
 // element range [start, end):
@@ -14,20 +16,32 @@
 // and the clipped rgb is stored straight into the [H, W, 3] image, edge
 // tiles cropped.
 //
-// What bounds it on the H100: pair evaluations (one expf and ~12 flops per
-// element per pixel still alive) and the per-element gathers of a 40-byte
-// feature row by sorted index (E rows per frame, in scattered order).
+// What bounds it on the H100: the pair evaluations, about 20 flops and one
+// expf per (pixel, element) pair a pixel still needs; the bytes (each live
+// element's 8-byte id and its gaussian's 36-byte row, read once) are a
+// fraction of that at the stand-in scenes.
 //
-// Design (the reference's own RenderGaussians shape, SURVEY.md §3.4): one
-// block of 256 threads per tile, one thread per pixel.  Each batch of 256
-// elements is gathered once into shared memory, one row per thread, and
-// then read by all 256 pixels, so a row costs one global gather per tile
-// instead of one per pixel.  Each pixel runs the sequential recurrence with
-// its own early-out; the block leaves as soon as every pixel is done
-// (__syncthreads_or), which is what makes saturated tiles cheap.  Pixels
-// outside the image start done.  The TPU kernel's K-lane batches, DMA
-// double-buffering and exclusive-cumprod tree are not carried over: the
-// recurrence is sequential per thread here, as in the reference.
+// Design (the reference's RenderGaussians shape, SURVEY.md §3.4): one block
+// per tile, the sequential per-pixel recurrence with its own early-out, and
+// the block leaves as soon as every pixel is done (__syncthreads_or), which
+// is what makes saturated tiles cheap.  Each batch of 256 elements is copied
+// once into shared memory and read by every pixel.
+// - The copies are cp.async from the frame's own tensors (screen_pos float2,
+//   cov_inv three floats, color_alpha float4) into packed rows, double-
+//   buffered: the next batch's rows are in flight while the current batch is
+//   blended, and the ids of the batch after that are loaded a batch ahead,
+//   so the id -> row dependency stays off the critical path.  A dead slot
+//   (SENTINEL id) is a zero row: galpha 0, never eligible.
+// - The copying thread scales its conic by the exact powers of two -0.5,
+//   -1, -0.5 (pack_feature_table's multiplies, the same bits) and sets the
+//   row's skip threshold before the batch's barrier.
+// - A pair is skipped, expf and all, when f > 0 or f < thr, where
+//   thr = logf(cutoff / galpha) - 1e-3: below it galpha * expf(f) is under
+//   the cutoff by a margin far above expf's and logf's few-ulp errors, so a
+//   skipped pair is ineligible and the result cannot change.  NaN f or thr
+//   skip too: such a pair's alpha is NaN or <= 0, ineligible as well.
+// - One pixel a thread: two pixels a thread (one shared row read for two
+//   pairs) measured slower at garden30k_1080p (PERF.md, K2 findings).
 //
 // expf (not __expf), and FMA contraction left at nvcc's default (-fmad=true).
 
@@ -37,21 +51,62 @@
 namespace {
 
 constexpr int kTile = 16;
-constexpr int kThreads = kTile * kTile;
-constexpr int kBatch = kThreads;
-constexpr int kCols = 10;  // gx, gy, a', b', c', 0, r, g, b, galpha
+constexpr int kThreads = kTile * kTile;  // one pixel a thread
+constexpr int kBatch = kThreads;         // elements a batch, one copied a thread
 constexpr int64_t kSentinel = 0xFFFFFFFFLL;
+constexpr float kSkipMargin = 1e-3f;
 
-struct Feature {
-  float gx, gy, a, b, c, r, g, bl, galpha;
+// One batch of element rows in shared memory.
+struct Batch {
+  float4 geo[kBatch];    // gx, gy, a', b'
+  float2 geo2[kBatch];   // c', skip threshold
+  float4 color[kBatch];  // r, g, b, galpha
 };
 
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(kBytes)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start the copies of gaussian idx's row into slot s, or write a dead
+// slot's zero row.
+__device__ __forceinline__ void fetch(Batch& b, int s, int64_t idx,
+                                      const float2* __restrict__ pos,
+                                      const float* __restrict__ cov,
+                                      const float4* __restrict__ color) {
+  if (idx == kSentinel) {
+    b.geo[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    b.geo2[s] = make_float2(0.0f, 0.0f);
+    b.color[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
+  }
+  cp_async<8>(&b.geo[s], pos + idx);
+  cp_async<4>(&b.geo[s].z, cov + 3 * idx);
+  cp_async<4>(&b.geo[s].w, cov + 3 * idx + 1);
+  cp_async<4>(&b.geo2[s].x, cov + 3 * idx + 2);
+  cp_async<16>(&b.color[s], color + idx);
+}
+
 __global__ void __launch_bounds__(kThreads)
-blend_tiles_kernel(const float* __restrict__ table, const int64_t* __restrict__ index,
-                   const int64_t* __restrict__ ranges, int grid_w, int width,
-                   int height, float alpha_cutoff, float t_stop,
-                   float* __restrict__ out) {
-  __shared__ Feature s_feat[kBatch];
+blend_tiles_kernel(const float2* __restrict__ pos, const float* __restrict__ cov,
+                   const float4* __restrict__ color, const int64_t* __restrict__ index,
+                   const int64_t* __restrict__ ranges, int grid_w, int width, int height,
+                   float alpha_cutoff, float t_stop, float* __restrict__ out) {
+  __shared__ Batch s_batch[2];
 
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
@@ -66,40 +121,47 @@ blend_tiles_kernel(const float* __restrict__ table, const int64_t* __restrict__ 
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
   bool done = px_i >= width || py_i >= height;
 
-  for (int64_t k0 = start; k0 < end; k0 += kBatch) {
-    // Barrier for the previous batch's readers, and the block-wide exit.
-    if (!__syncthreads_or(!done)) break;
-    const int n = static_cast<int>(end - k0 < kBatch ? end - k0 : kBatch);
-    if (t < n) {
-      const int64_t idx = index[k0 + t];
-      Feature ft{};
-      if (idx != kSentinel) {
-        const float* row = table + idx * kCols;
-        ft.gx = row[0];
-        ft.gy = row[1];
-        ft.a = row[2];
-        ft.b = row[3];
-        ft.c = row[4];
-        ft.r = row[6];
-        ft.g = row[7];
-        ft.bl = row[8];
-        ft.galpha = row[9];
-      }
-      s_feat[t] = ft;
+  // Batch 0's rows in flight, batch 1's id loaded.
+  if (start + t < end) fetch(s_batch[0], t, index[start + t], pos, cov, color);
+  cp_async_commit();
+  int64_t next_idx = start + kBatch + t < end ? index[start + kBatch + t] : kSentinel;
+
+  int buf = 0;
+  for (int64_t k0 = start; k0 < end; k0 += kBatch, buf ^= 1) {
+    Batch& b = s_batch[buf];
+    cp_async_wait_all();  // this thread's copies of batch k0
+    if (k0 + t < end) {
+      b.geo[t].z *= -0.5f;
+      b.geo[t].w *= -1.0f;
+      b.geo2[t].x *= -0.5f;
+      b.geo2[t].y = logf(alpha_cutoff / b.color[t].w) - kSkipMargin;
     }
-    __syncthreads();
+    // Barrier: the batch is visible to every pixel, and every pixel is past
+    // the previous batch, so its buffer is free; and the block-wide exit
+    // (nothing is in flight here).
+    if (!__syncthreads_or(!done)) break;
+    const int64_t k1 = k0 + kBatch;
+    if (k1 + t < end) fetch(s_batch[buf ^ 1], t, next_idx, pos, cov, color);
+    cp_async_commit();
+    next_idx = k1 + kBatch + t < end ? index[k1 + kBatch + t] : kSentinel;
     if (done) continue;
+
+    const int n = static_cast<int>(end - k0 < kBatch ? end - k0 : kBatch);
+#pragma unroll 2  // measured faster than 1 and 4 at garden30k_1080p
     for (int j = 0; j < n; ++j) {
-      const Feature ft = s_feat[j];
-      const float dx = ft.gx - px;
-      const float dy = py - ft.gy;
-      const float f = (ft.a * dx * dx + ft.c * dy * dy) + ft.b * dx * dy;
-      const float alpha = ft.galpha * expf(f);
-      if (f <= 0.0f && alpha >= alpha_cutoff) {
+      const float4 g = b.geo[j];
+      const float2 g2 = b.geo2[j];
+      const float dx = g.x - px;
+      const float dy = py - g.y;
+      const float f = (g.z * dx * dx + g2.x * dy * dy) + g.w * dx * dy;
+      if (!(f <= 0.0f && f >= g2.y)) continue;  // ineligible: skipped
+      const float4 c = b.color[j];
+      const float alpha = c.w * expf(f);
+      if (alpha >= alpha_cutoff) {
         const float w = trans * alpha;
-        cr += w * ft.r;
-        cg += w * ft.g;
-        cb += w * ft.bl;
+        cr += w * c.x;
+        cg += w * c.y;
+        cb += w * c.z;
         trans *= 1.0f - alpha;
         if (trans < t_stop) {
           done = true;
@@ -108,6 +170,7 @@ blend_tiles_kernel(const float* __restrict__ table, const int64_t* __restrict__ 
       }
     }
   }
+  cp_async_wait_all();  // the last iteration's (empty) group, or none
 
   if (px_i < width && py_i < height) {
     float* o = out + (static_cast<int64_t>(py_i) * width + px_i) * 3;
@@ -119,15 +182,22 @@ blend_tiles_kernel(const float* __restrict__ table, const int64_t* __restrict__ 
 
 }  // namespace
 
-extern "C" int vk3d_blend_tiles(const void* table, const void* index, const void* ranges,
-                                int32_t num_tiles, int32_t grid_w, int32_t width,
-                                int32_t height, float alpha_cutoff, float t_stop,
-                                void* out, int32_t device, void* stream) {
+// screen_pos [N, 2], cov_inv [N, 3] and color_alpha [N, 4] float32,
+// contiguous; color_alpha 16-byte and screen_pos 8-byte aligned.
+extern "C" int vk3d_blend_tiles(const void* screen_pos, const void* cov_inv,
+                                const void* color_alpha, const void* index, const void* ranges,
+                                int32_t num_tiles, int32_t grid_w, int32_t width, int32_t height,
+                                float alpha_cutoff, float t_stop, void* out, int32_t device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_tiles <= 0) return static_cast<int>(cudaSuccess);
+  if (reinterpret_cast<uintptr_t>(color_alpha) % 16 || reinterpret_cast<uintptr_t>(screen_pos) % 8) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   blend_tiles_kernel<<<num_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int64_t*>(index),
+      static_cast<const float2*>(screen_pos), static_cast<const float*>(cov_inv),
+      static_cast<const float4*>(color_alpha), static_cast<const int64_t*>(index),
       static_cast<const int64_t*>(ranges), grid_w, width, height, alpha_cutoff, t_stop,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

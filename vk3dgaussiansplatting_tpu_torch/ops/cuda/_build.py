@@ -40,12 +40,12 @@ _F32 = ctypes.c_float
 # C entry points: name -> (argtypes, restype).  The launchers return the
 # cudaError_t of their launch; each takes the device index and the stream.
 SIGNATURES = {
-    # cols, ncols, cum, n, capacity, out, device, stream
-    "vk3d_expand_rows": ([_P, _I32, _P, _I64, _I64, _P, _I32, _P], ctypes.c_int),
-    # table, index, ranges, num_tiles, grid_w, width, height, alpha_cutoff,
-    # transmittance_stop, out, device, stream
+    # cols, ncols, cum, n, capacity, part, nblocks, out, device, stream
+    "vk3d_expand_rows": ([_P, _I32, _P, _I64, _I64, _P, _I64, _P, _I32, _P], ctypes.c_int),
+    # screen_pos, cov_inv, color_alpha, index, ranges, num_tiles, grid_w,
+    # width, height, alpha_cutoff, transmittance_stop, out, device, stream
     "vk3d_blend_tiles": (
-        [_P, _P, _P, _I32, _I32, _I32, _I32, _F32, _F32, _P, _I32, _P],
+        [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _F32, _F32, _P, _I32, _P],
         ctypes.c_int,
     ),
     # table, index, num_index, ranges, num_tiles, cap, batch_k, grid_w,

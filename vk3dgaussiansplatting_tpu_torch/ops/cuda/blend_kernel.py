@@ -1,15 +1,17 @@
 """Tiled front-to-back blends (K2, K3, K4) — wrappers of csrc/blend.cu,
 csrc/blend_flat.cu and csrc/blend_strip.cu.
 
-K2 `blend_rows` replaces vk3dgaussiansplatting_tpu/ops/pallas/
-blend_kernel.py:blend_tiles_pallas and its feature table,
-`pack_feature_table`; K3 `blend_flat` replaces blend_flat_core /
-blend_tiles_pallas_flat, the capped path's blend with its per-pixel
-transmittance output; K4 `blend_strip` replaces blend_strip_colors_pallas,
-the distributed frame's carry-aware strip blend.  K2 and K3 gather each
-element's row from the per-gaussian [N, 10] table by id, and K4 reads the
-rows that the exchange routed in sorted order (or gathers by id too), so
-there is no [16, E] sorted-order feature array as on the TPU.
+K2 `blend_tiles` replaces vk3dgaussiansplatting_tpu/ops/pallas/
+blend_kernel.py:blend_tiles_pallas together with the feature build inside
+it: it reads each element's row of the frame data (GaussianFrameData) by
+id, so the uncapped frame builds no feature table.  K3 `blend_flat`
+replaces blend_flat_core / blend_tiles_pallas_flat, the capped path's blend
+with its per-pixel transmittance output; K4 `blend_strip` replaces
+blend_strip_colors_pallas, the distributed frame's carry-aware strip blend.
+K3 gathers each element's row from the per-gaussian [N, 10]
+`pack_feature_table` by id, and K4 reads the rows that the exchange routed
+in sorted order (or gathers by id too), so there is no [16, E] sorted-order
+feature array as on the TPU.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version in ops/blend.py (blend_rows_plain, blend_flat_plain,
@@ -53,6 +55,12 @@ def pack_feature_table(frame: GaussianFrameData) -> torch.Tensor:
 def _check(table, index, ranges, config: RenderConfig):
     if table.dim() != 2 or table.shape[1] != blend_ops.NUM_TABLE_COLS or table.dtype != torch.float32:
         raise ValueError(f"table must be [N, 10] float32, got {tuple(table.shape)} {table.dtype}")
+    _check_index_ranges(index, ranges, config)
+    if not (table.device == index.device == ranges.device):
+        raise ValueError("table, index and ranges must be on one device")
+
+
+def _check_index_ranges(index, ranges, config: RenderConfig) -> None:
     if index.dim() != 1 or index.dtype != torch.int64:
         raise ValueError(f"index must be [E] int64, got {tuple(index.shape)} {index.dtype}")
     if tuple(ranges.shape) != (config.num_tiles, 2) or ranges.dtype != torch.int64:
@@ -62,28 +70,57 @@ def _check(table, index, ranges, config: RenderConfig):
         )
     if config.tile_size != 16:
         raise ValueError("the blend kernel is built for 16x16 tiles")
-    if not (table.device == index.device == ranges.device):
-        raise ValueError("table, index and ranges must be on one device")
 
 
-def blend_rows(
-    table: torch.Tensor, index: torch.Tensor, ranges: torch.Tensor, config: RenderConfig
+# The frame tensors K2 reads, with their widths and the alignment its
+# vector copies need (bytes).
+_FRAME_ROWS = (("screen_pos", 2, 8), ("cov_inv", 3, 4), ("color_alpha", 4, 16))
+
+
+def _check_frame(frame: GaussianFrameData, index, ranges, config: RenderConfig) -> None:
+    n = frame.screen_pos.shape[0]
+    for name, width, _align in _FRAME_ROWS:
+        x = getattr(frame, name)
+        if tuple(x.shape) != (n, width) or x.dtype != torch.float32:
+            raise ValueError(f"frame.{name} must be [{n}, {width}] float32, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"frame.{name} must be contiguous (the kernel reads its rows)")
+    _check_index_ranges(index, ranges, config)
+    devices = {getattr(frame, name).device for name, _w, _a in _FRAME_ROWS}
+    if len(devices | {index.device, ranges.device}) != 1:
+        raise ValueError("the frame tensors, index and ranges must be on one device")
+
+
+def blend_tiles(
+    elements: SortElements,
+    ranges: torch.Tensor,
+    frame: GaussianFrameData,
+    config: RenderConfig,
 ) -> torch.Tensor:
-    """Blend every tile; returns float32 [H, W, 3] in [0, 1].
+    """K2: blend all tiles of a sorted frame (blend_tiles_pallas's
+    signature); returns float32 [H, W, 3] in [0, 1].
 
-    table: [N, 10] float32 (pack_feature_table); index: [E] int64 sorted
-    gaussian ids (SENTINEL if dead); ranges: [num_tiles, 2] int64."""
+    The kernel reads frame.screen_pos [N, 2], frame.cov_inv [N, 3] and
+    frame.color_alpha [N, 4] (contiguous float32) by the sorted gaussian ids
+    elements.index [E] int64 (SENTINEL if dead); ranges: [num_tiles, 2]
+    int64.  On CPU tensors: blend_rows_plain on pack_feature_table(frame)."""
     global LAUNCHES
-    _check(table, index, ranges, config)
-    if table.device.type == "cpu":
-        return blend_ops.blend_rows_plain(table, index, ranges, config)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
-    table, index, ranges = table.contiguous(), index.contiguous(), ranges.contiguous()
-    out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=table.device)
-    lib = _build.load_library()
-    err = lib.vk3d_blend_tiles(
-        table.data_ptr(),
+    _check_frame(frame, elements.index, ranges, config)
+    device = frame.screen_pos.device
+    if device.type == "cpu":
+        return blend_ops.blend_rows_plain(pack_feature_table(frame), elements.index, ranges, config)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    for name, _width, align in _FRAME_ROWS:
+        if getattr(frame, name).data_ptr() % align:
+            raise ValueError(f"frame.{name} must be {align}-byte aligned")
+    index, ranges = elements.index.contiguous(), ranges.contiguous()
+    out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=device)
+    err = _build.load_library().vk3d_blend_tiles(
+        frame.screen_pos.data_ptr(),
+        frame.cov_inv.data_ptr(),
+        frame.color_alpha.data_ptr(),
         index.data_ptr(),
         ranges.data_ptr(),
         config.num_tiles,
@@ -93,22 +130,12 @@ def blend_rows(
         config.alpha_cutoff,
         config.transmittance_stop,
         out.data_ptr(),
-        table.device.index,
-        torch.cuda.current_stream(table.device).cuda_stream,
+        device.index,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(err, "blend_tiles")
     LAUNCHES += 1
     return out
-
-
-def blend_tiles(
-    elements: SortElements,
-    ranges: torch.Tensor,
-    frame: GaussianFrameData,
-    config: RenderConfig,
-) -> torch.Tensor:
-    """Blend all tiles of a sorted frame (blend_tiles_pallas's signature)."""
-    return blend_rows(pack_feature_table(frame), elements.index, ranges, config)
 
 
 def blend_flat(

@@ -4,9 +4,11 @@ Replaces vk3dgaussiansplatting_tpu/ops/pallas/expand_kernel.py:expand_rows
 (K1) and :expand_rows_streamed (K1').  On the TPU the two differ only in
 their DMA schedule: K1' streams windows for the prefilter's thinned counts
 (~1 element per source row), and its output is K1's bit for bit.  The CUDA
-kernel's thread-per-slot binary search does not depend on run lengths, so
-both wrappers launch it; each keeps its own launch count, so a run shows
-which of the two the frame went through.
+kernel's merge-path expansion gives every block the same share of row ends
+and slots whatever the run lengths, so both wrappers launch it; each keeps
+its own launch count, so a run shows which of the two the frame went
+through.  One launch is the scan (`torch.cumsum`), the partition search and
+the expansion, on the current stream.
 
 Each wrapper launches the CUDA kernel for CUDA tensors and runs
 `expand_rows_plain` for CPU tensors; it never falls back from one to the
@@ -22,6 +24,8 @@ from . import _build
 LAUNCHES = 0
 STREAMED_LAUNCHES = 0
 MAX_COLS = 7
+# Merged items (row ends and slots) per block of csrc/expand.cu (kItems).
+ITEMS_PER_BLOCK = 512
 
 
 def _check(cols: torch.Tensor, counts: torch.Tensor) -> None:
@@ -56,6 +60,8 @@ def _launch(cols: torch.Tensor, counts: torch.Tensor, capacity: int):
     cum = torch.cumsum(counts, 0, dtype=torch.int64)
     total = cum[-1] if cum.numel() else torch.zeros((), dtype=torch.int64, device=cols.device)
     out = torch.empty((cols.shape[0], capacity), dtype=torch.int32, device=cols.device)
+    nblocks = -(-(cols.shape[1] + capacity) // ITEMS_PER_BLOCK)
+    part = torch.empty(nblocks + 1, dtype=torch.int64, device=cols.device)
     lib = _build.load_library()
     err = lib.vk3d_expand_rows(
         cols.data_ptr(),
@@ -63,6 +69,8 @@ def _launch(cols: torch.Tensor, counts: torch.Tensor, capacity: int):
         cum.data_ptr(),
         cols.shape[1],
         capacity,
+        part.data_ptr(),
+        nblocks,
         out.data_ptr(),
         cols.device.index,
         torch.cuda.current_stream(cols.device).cuda_stream,

@@ -88,9 +88,7 @@ def render_frame(
         if config.blend_depth_cap > 0:
             image = capped_ops.blend_tiles_capped(elements, ranges, frame, config)
         else:
-            image = blend_kernel.blend_rows(
-                blend_kernel.pack_feature_table(frame), elements.index, ranges, config
-            )
+            image = blend_kernel.blend_tiles(elements, ranges, frame, config)
     return FrameOutputs(
         image_u8=blend_ops.quantize_image(image),
         image=image,
