@@ -36,10 +36,12 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            frames, the steady switch, 10 timed frames, camera step 1e-5 as
            in the JAX benchmark); ms/frame, per-pass ms, live elements
            before and after the switch, fast/patch/full frame counts, the ok
-           flags, host synchronisations per frame (torch's sync debug mode)
-  check    on each capped scene's last frame: K3 against its plain version
-           (8-bit bound as K2; T compared; the tiles' validity and the next
-           caps, thresholds and floors from either T must be equal), K5 and
+           flags, host synchronisations per frame (torch's sync debug mode);
+           no capped frame may build a feature table (pack_feature_table)
+  check    on each capped scene's last frame: K3 (reading the frame data by
+           id) against its plain version on pack_feature_table's rows, image
+           and T bit for bit (the tiles' validity and the next caps,
+           thresholds and floors from either T must be equal), K5 and
            K1 (chunk map) bit-exact on live lanes, K6 bit-exact on the
            layout's own chunk offsets, K1' (garden) bit-exact; the capped
            image against the uncapped K2 frame of the same camera within
@@ -55,9 +57,11 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            rank: ms/frame and per-pass ms (keygen, bucket, exchange, sort,
            ranges, blend), [live, sent, received, dropped].  Checked: sent
            == live on every rank, sum received == sum sent, no strip-window
-           drops, max received <= 3 x min received; K4 == its plain version
-           bit for bit (colour and log T) on every phase of every rank's last
-           frame; the assembled image within ±1 8-bit per channel of the
+           drops, max received <= 3 x min received; K4 against its plain
+           version on every phase of every rank's last frame
+           (`blend_kernel.strip_mismatch`: colour bit for bit; K4 stops
+           each pixel at T < stop, so log T bit for bit where the plain
+           T >= stop, both T below the stop elsewhere); the assembled image within ±1 8-bit per channel of the
            uncapped single-device frame of the same camera
   launches each path's kernels launched during its frames (counts set to 0
            just before the path, read just after; the distributed path's
@@ -68,7 +72,11 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
 Each kernel's bound is the larger of its bytes over 3.35 TB/s (each input
 read once, each output written once, at this run's shapes) and its float32
 operations over 67 TFLOP/s; for the blends the work is what the inputs need
-(`blend_work`: each pixel's pairs up to its saturating element).
+(`blend_work`: P, each pixel's pairs up to its saturating element, for K2
+and K4; P_batch, every pair of every batch a tile enters, for K3, whose
+batch-granular T the capped policy reads; both are logged), counted by
+kind: every pair evaluated, an eligible pair's T step, and the colour an
+eligible pair adds only while its pixel's T is at or above the stop.
 
 Then one JSON line with each kernel's launches, error, times (kernel,
 plain, one PyTorch call where one computes the same function), bound and
@@ -81,6 +89,7 @@ import dataclasses
 import json
 import linecache
 import math
+import re
 import statistics
 import subprocess
 import tempfile
@@ -140,14 +149,19 @@ DIST_PASSES = ("keygen", "bucket", "exchange", "sort", "ranges", "blend")
 # over the float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-# Float32 operations per (pixel, element) pair a blend evaluates: dx, dy,
-# f (8), alpha (1), the eligibility tests (2), and for an eligible element
-# T*alpha, three colour FMAs and T *= 1 - alpha (8).  expf's own
+# Float32 operations (a multiply-add counts 2, as in the peak rate) of a
+# blend, by kind.  Every (pixel, element) pair evaluated: dx, dy (2), f =
+# a dx dx + c dy dy + b dx dy (8) and the two eligibility tests, f <= 0 and
+# f >= thr (2).  An eligible pair also steps T: alpha = galpha exp(f),
+# 1 - alpha and the product (3); and, while its pixel's T is at or above
+# the stop, adds colour: T alpha and three multiply-adds (7).  expf's own
 # instructions are not counted, so the bound stays a lower bound.
-FLOPS_PER_PAIR = 20
-# Bytes of one gaussian's row as K2 reads it (screen_pos 8, cov_inv 12,
-# color_alpha 16), and of a pack_feature_table row (K3, K4).
-K2_ROW_BYTES = 36
+FLOPS_PER_PAIR = 12
+FLOPS_PER_T_STEP = 3
+FLOPS_PER_COLOUR = 7
+# Bytes of one gaussian's row as K2 and K3 read it (screen_pos 8, cov_inv
+# 12, color_alpha 16), and of a pack_feature_table row (K4).
+FRAME_ROW_BYTES = 36
 TABLE_ROW_BYTES = 40
 
 # Launch counters of the kernel wrappers.
@@ -195,11 +209,17 @@ def phase_build() -> None:
     _build.load_library()
     seconds = time.perf_counter() - t0
     report = path.with_suffix(".log")
-    used = []
-    if report.exists():
-        used = [ln.split("ptxas info    :")[-1].strip() for ln in report.read_text().splitlines()
-                if "Used" in ln or "spill" in ln]
-    log(f"build: {path.name} in {seconds:.2f} s; ptxas: {' | '.join(used)}")
+    # ptxas's report, one entry a kernel: its name, registers, shared
+    # memory, stack and spills.
+    entries = []
+    for ln in report.read_text().splitlines() if report.exists() else []:
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            k = re.search(r"[a-z][a-z_]*_kernel(ILb[01]E)?", m.group(1))
+            name = k.group(0) if k else m.group(1)
+            entries.append([name.replace("ILb1E", "<true>").replace("ILb0E", "<false>")])
+        elif entries and ("Used" in ln or "spill" in ln):
+            entries[-1].append(ln.split("ptxas info    :")[-1].strip())
+    log(f"build: {path.name} in {seconds:.2f} s; ptxas: {' | '.join(' '.join(e) for e in entries)}")
 
 
 def make_scene(name: str):
@@ -329,11 +349,19 @@ def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, til
     A pixel whose incoming T is below the stop needs none; with `in_image`,
     pixels outside the image need none (K2 writes only the image).
 
-    Returns {"pairs": P, "slots": slots read, per tile up to its last needed
-    element, "rows": distinct gaussian ids among those slots, "warp_steps":
-    the sum over 32-pixel warps of their longest pixel's pairs (what a warp
-    per 32 pixels must step through), "longest": the most slots one tile
-    needs}."""
+    Returns {"pairs": P, "eligible": the eligible pairs among them, "ops":
+    their float32 operations (every pair evaluated, an eligible one also
+    steps T and adds colour), "slots": slots read, per tile up to its last
+    needed element, "rows": distinct gaussian ids among those slots,
+    "warp_steps": the sum over 32-pixel warps of their longest pixel's
+    pairs (what a warp per 32 pixels must step through), "longest": the
+    most slots one tile needs, "pairs_batch": P_batch, the pairs the TPU
+    kernels' batch-granular T must evaluate (256 a slot, for each tile's
+    slots up to the end of the batch at whose start every pixel is below
+    the stop: K3 with T), "eligible_past": the eligible pairs among
+    P_batch - P, "ops_batch": "ops" plus P_batch - P pairs evaluated, whose
+    eligible ones step T and add no colour, "slots_batch" and "rows_batch"
+    likewise}."""
     device = rows.device
     ts = config.tile_size
     p = ts * ts
@@ -352,8 +380,21 @@ def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, til
     if in_image:
         done |= (px_i >= config.width) | (py_i >= config.height)
     pairs = torch.zeros((num_tiles, p), dtype=torch.int64, device=device)
-    for r in range(int(length.max()) if num_tiles else 0):
-        act = torch.nonzero((r < length) & ~done.all(dim=1)).squeeze(1)
+    # Eligible pairs among P, and among the pairs past each pixel's stop
+    # that a batch-granular T still evaluates.
+    eligible = torch.zeros(num_tiles, dtype=torch.int64, device=device)
+    eligible_past = torch.zeros(num_tiles, dtype=torch.int64, device=device)
+    # Batch-granular: a tile stops at the first batch start (its first slot
+    # included) at which every pixel is below the stop; batches of
+    # blend_batch_k slots from floor(start/128)*128.
+    lead = start - torch.div(start, blend_ops.ALIGN_K, rounding_mode="floor") * blend_ops.ALIGN_K
+    bk = config.blend_batch_k
+
+    # Slots each tile evaluates with batch-granular T: its range, cut at
+    # the batch end once every pixel is below the stop (0 if all start so).
+    per_tile_batch = torch.where(done.all(dim=1), 0, length)
+    for r in range(int(per_tile_batch.max()) if num_tiles else 0):
+        act = torch.nonzero(r < per_tile_batch).squeeze(1)
         if act.numel() == 0:
             break
         kk = start[act] + r
@@ -370,22 +411,38 @@ def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, til
         f = (a * dx * dx + c * dy * dy) + b * dx * dy
         alpha = galpha * torch.exp(f)
         todo = ~done[act]
+        elig = (f <= 0.0) & (alpha >= cutoff)
         pairs[act] += todo.to(torch.int64)
+        eligible[act] += (elig & todo).sum(dim=1)
+        eligible_past[act] += (elig & ~todo).sum(dim=1)
         t_act = trans[act]
-        t_new = torch.where((f <= 0.0) & (alpha >= cutoff) & todo, t_act * (1.0 - alpha), t_act)
+        t_new = torch.where(elig & todo, t_act * (1.0 - alpha), t_act)
         trans[act] = t_new
+        was_done = done[act].all(dim=1)
         done[act] |= t_new < stop
+        now = act[done[act].all(dim=1) & ~was_done]
+        nxt = torch.div(lead[now] + r + bk, bk, rounding_mode="floor") * bk - lead[now]
+        per_tile_batch[now] = torch.minimum(per_tile_batch[now], nxt)
+
+    def distinct_rows(per_tile):
+        n = int(per_tile.sum())
+        slot = torch.repeat_interleave(start, per_tile) + torch.arange(n, device=device) - (
+            torch.repeat_interleave(torch.cumsum(per_tile, 0) - per_tile, per_tile))
+        ids = index[torch.clamp(slot, max=e - 1)]
+        return int(torch.unique(ids[(slot < e) & (ids != SENTINEL)]).numel())
+
     per_tile = pairs.amax(dim=1)
-    n_slots = int(per_tile.sum())
-    first = torch.repeat_interleave(start, per_tile)
-    offset = torch.arange(n_slots, device=device) - torch.repeat_interleave(
-        torch.cumsum(per_tile, 0) - per_tile, per_tile)
-    slot = first + offset
-    ids = index[torch.clamp(slot, max=e - 1)]
-    ids = ids[(slot < e) & (ids != SENTINEL)]
-    return {"pairs": int(pairs.sum()), "slots": n_slots, "rows": int(torch.unique(ids).numel()),
+    n_pairs, n_eligible = int(pairs.sum()), int(eligible.sum())
+    n_batch = p * int(per_tile_batch.sum())
+    ops = FLOPS_PER_PAIR * n_pairs + (FLOPS_PER_T_STEP + FLOPS_PER_COLOUR) * n_eligible
+    return {"pairs": n_pairs, "eligible": n_eligible, "ops": ops, "slots": int(per_tile.sum()),
+            "rows": distinct_rows(per_tile),
             "warp_steps": int(pairs.reshape(num_tiles, p // 32, 32).amax(dim=2).sum()),
-            "longest": int(per_tile.max()) if num_tiles else 0}
+            "longest": int(per_tile.max()) if num_tiles else 0,
+            "pairs_batch": n_batch, "eligible_past": int(eligible_past.sum()),
+            "ops_batch": ops + FLOPS_PER_PAIR * (n_batch - n_pairs)
+            + FLOPS_PER_T_STEP * int(eligible_past.sum()),
+            "slots_batch": int(per_tile_batch.sum()), "rows_batch": distinct_rows(per_tile_batch)}
 
 
 def device_breakdown(fn, iters: int = 10) -> dict:
@@ -593,8 +650,8 @@ def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
         "library_ms": None,
         "blend_section_ms": passes["blend"],
         "work": work,
-        **bound(8 * work["slots"] + K2_ROW_BYTES * work["rows"] + 16 * config.num_tiles
-                + 12 * config.width * config.height, FLOPS_PER_PAIR * work["pairs"]),
+        **bound(8 * work["slots"] + FRAME_ROW_BYTES * work["rows"] + 16 * config.num_tiles
+                + 12 * config.width * config.height, work["ops"]),
     }
     log(f"check {name}: expand_rows bit-exact ({live} live of {capacity}), kernel "
         f"{k1['ms']:.3f} ms (its scan {k1['scan_ms']:.3f}) vs plain {k1['plain_ms']:.3f} ms, "
@@ -679,6 +736,9 @@ def run_capped(name: str, mult: float):
         torch.cuda.synchronize()
     launches = read_counts()
     per_frame = {k: (launches[k] - before[k]) / frames for k in launches}
+    tables = cap.counts.get("pack_feature_table", 0)
+    if tables:
+        raise RuntimeError(f"{name} capped: the capped frames built {tables} feature tables")
     path_kernels = ["expand_rows", "blend_flat", "compact_runs"]
     if chained:
         path_kernels.append("expand_rows_streamed")
@@ -701,7 +761,7 @@ def run_capped(name: str, mult: float):
         f"max {max(frame_ms):.3f}, {frames} frames); per pass ms "
         + ", ".join(f"{k} {passes[k]:.3f}" for k in
                     ("keygen", "expand", "sort", "ranges", "layout", "blend", "policy", "patch"))
-        + f"; frames fast/patch/full {dict(capped_ops.PATH_COUNTS)}; ok {oks}; host syncs per "
+        + f"; feature tables built {tables}; frames fast/patch/full {dict(capped_ops.PATH_COUNTS)}; ok {oks}; host syncs per "
         f"frame {syncs / SYNC_FRAMES:g} {sync_lines}; launches {launches}; per timed frame "
         f"{per_frame}")
     return renderer, cam, cap, out, launches, per_frame
@@ -712,18 +772,21 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
     frame's own inputs, and the frame against the uncapped K2 frame."""
     config = renderer.config
     res = {}
-    (lay, caps, elements, rng_, _fr, _cfg, ep), _ = cap.calls["capped_finish"][-1]
+    (lay, caps, elements, rng_, frame, _cfg, ep), _ = cap.calls["capped_finish"][-1]
 
-    # K3 with T on the packed layout, and the policy decisions from each T.
+    # K3 with T on the packed layout, reading the frame's own data, against
+    # its plain version on the feature table: image and T bit for bit, and
+    # the policy decisions from each T.
     pranges = torch.stack([lay.pstart, lay.pstart + lay.counts], dim=1)
-    img, t_k = blend_kernel.blend_flat(lay.table, lay.gid, pranges, config, with_t=True)
-    ref, t_p = blend_ops.blend_flat_plain(lay.table, lay.gid, pranges, config, with_t=True)
+    table = blend_kernel.pack_feature_table(frame)
+    img, t_k = blend_kernel.blend_flat(frame, lay.gid, pranges, config, with_t=True)
+    ref, t_p = blend_ops.blend_flat_plain(table, lay.gid, pranges, config, with_t=True)
     check_image(img, config, f"{name} K3")
-    per_ch = u8_compare(img, ref)
-    for ch, (mx, frac) in enumerate(per_ch):
-        if mx > K2_MAX_U8 or frac > K2_MAX_FRAC_GT1:
-            raise RuntimeError(f"{name}: blend_flat channel {ch}: 8-bit max |Δ| {mx}, "
-                               f"share > 1 {frac:.2e}")
+    for what, a, b in (("image", img, ref), ("T", t_k, t_p)):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{name}: blend_flat {what} differs from its plain version at "
+                               f"{int((a != b).sum())} values, max |Δ| "
+                               f"{float((a - b).abs().max()):.3e}")
     c, thr, floor = capped_ops._split_caps(caps, config)
     decisions = []
     for t_out in (t_k, t_p):
@@ -736,19 +799,23 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         if not torch.equal(a, b):
             raise RuntimeError(f"{name}: {what} from K3's T differs from the plain version's "
                                f"({int((a != b).sum())} tiles)")
-    t_err = float((t_k - t_p).abs().max())
-    work = blend_work(lay.table, lay.gid, pranges, config, in_image=False)
+    work = blend_work(table, lay.gid, pranges, config, in_image=False)
     nt = config.num_tiles
+    out_bytes = 16 * nt + 12 * config.width * config.height + 4 * nt * config.tile_size**2
+    # Bound with P_batch (what K3's T semantics must evaluate), and with P
+    # beside it.
+    per_pixel = bound(8 * work["slots"] + FRAME_ROW_BYTES * work["rows"] + out_bytes,
+                      work["ops"])
     res["blend_flat"] = {
         "max_abs_err": float((img - ref).abs().max()),
         "library_ms": None,
         "work": work,
-        **bound(8 * work["slots"] + TABLE_ROW_BYTES * work["rows"] + 16 * nt + 12 * config.width
-                * config.height + 4 * nt * config.tile_size**2, FLOPS_PER_PAIR * work["pairs"]),
-        "ms": cuda_ms(lambda: blend_kernel.blend_flat(lay.table, lay.gid, pranges, config,
+        **bound(8 * work["slots_batch"] + FRAME_ROW_BYTES * work["rows_batch"] + out_bytes,
+                work["ops_batch"]),
+        "ms": cuda_ms(lambda: blend_kernel.blend_flat(frame, lay.gid, pranges, config,
                                                       with_t=True), 20),
-        "plain_ms": cuda_ms(lambda: blend_ops.blend_flat_plain(lay.table, lay.gid, pranges, config,
-                                                               with_t=True), 1),
+        "plain_ms": cuda_ms(lambda: blend_ops.blend_flat_plain(
+            blend_kernel.pack_feature_table(frame), lay.gid, pranges, config, with_t=True), 1),
     }
 
     # K5 (the layout's call: the largest ep) and K6 on its chunk offsets.
@@ -813,15 +880,15 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
     vs_k2 = u8_compare(out.image, unc.image)
     if max(mx for mx, _ in vs_k2) > 1:
         raise RuntimeError(f"{name}: capped vs uncapped 8-bit (max, share>1) per channel {vs_k2}")
-    log(f"check {name} capped: blend_flat float max |Δ| {res['blend_flat']['max_abs_err']:.3e}, "
-        f"T max |Δ| {t_err:.3e}, 8-bit (max, share>1) {per_ch}, valid/caps/thr/floor from "
+    log(f"check {name} capped: blend_flat (on the frame data) == plain bit for bit, image and "
+        f"T, valid/caps/thr/floor from "
         f"either T equal; kernel {res['blend_flat']['ms']:.3f} ms vs plain "
         f"{res['blend_flat']['plain_ms']:.3f} ms; compact_runs bit-exact on {int(live.sum())} "
         f"live lanes of {ep5}, {res['compact_runs']['ms']:.3f} ms vs plain "
         f"{res['compact_runs']['plain_ms']:.3f}; compact_segments bit-exact, "
         f"{res['compact_segments']['ms']:.3f} ms vs plain {res['compact_segments']['plain_ms']:.3f}"
-        + f"; K3 bound {res['blend_flat']['bound_ms']:.4f} ms ({res['blend_flat']['bound_by']}, "
-        f"{work}); K5 bound "
+        + f"; K3 bound {res['blend_flat']['bound_ms']:.4f} ms with P_batch "
+        f"({res['blend_flat']['bound_by']}), {per_pixel['bound_ms']:.4f} with P ({work}); K5 bound "
         f"{res['compact_runs']['bound_ms']:.4f}, K6 bound {res['compact_segments']['bound_ms']:.4f}"
         + "".join(f"; {k} bit-exact, {res[k]['ms']:.3f} ms vs plain {res[k]['plain_ms']:.3f}, "
                   f"repeat_interleave {res[k]['library_ms']:.3f}, bound {res[k]['bound_ms']:.4f} "
@@ -890,34 +957,38 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
     if len(phases) != world:
         raise RuntimeError(f"rank {rank}: {len(phases)} blend_strip calls in a frame, not {world}")
     err = 0.0
+    stopped_early = 0
     for s, (a, k) in enumerate(phases):
         got = blend_kernel.blend_strip(*a, **k)
         want = blend_ops.blend_strip_plain(*a, **k)
-        for what, g, w in zip(("colour", "log T"), got, want):
-            if not torch.equal(g, w):
-                d = (g - w).abs().nan_to_num(posinf=float("inf"))
-                raise RuntimeError(f"rank {rank} phase {s}: blend_strip {what} differs from its "
-                                   f"plain version at {int((g != w).sum())} values, max |Δ| "
-                                   f"{float(d.max())}")
+        fault = blend_kernel.strip_mismatch(got, want, a[3].transmittance_stop)
+        if fault:
+            raise RuntimeError(f"rank {rank} phase {s}: blend_strip {fault}")
         err = max(err, float((got[0] - want[0]).abs().max()))
-    k4 = {"max_abs_err": err}
+        stopped_early += int((got[1] != want[1]).sum())
+    k4 = {"max_abs_err": err, "log_t_stopped_early": stopped_early}
     tdist.barrier()
     if rank == 0:  # timed while the other ranks wait, so the card is this rank's
         k4["ms"] = statistics.mean(
             cuda_ms(lambda: blend_kernel.blend_strip(*a, **k), 20) for a, k in phases)
         k4["plain_ms"] = statistics.mean(
             cuda_ms(lambda: blend_ops.blend_strip_plain(*a, **k), 1) for a, k in phases)
-        # The bound of the mean phase: each phase's slots (routed rows are
-        # read per slot, gathered rows per gaussian), ranges, and the carry
-        # in and out, 16 B a pixel each way.
-        work = []
+        # The bound of the mean phase with P (K4 stops each pixel), and with
+        # P_batch beside it: each phase's slots (routed rows are read per
+        # slot, gathered rows per gaussian), ranges, and the carry in and
+        # out, 16 B a pixel each way.
+        work = {"": [], "_batch": []}
         for (rows, index, ranges_, cfg), k in phases:
             w = blend_work(rows, index, ranges_, cfg, in_image=False, tile_base=k["tile_base"],
                            trans=torch.exp(k["carry_logt"]), gather=k["gather"])
-            row_bytes = TABLE_ROW_BYTES * (w["rows"] if k["gather"] else w["slots"])
-            work.append((8 * w["slots"] + row_bytes + 16 * ranges_.shape[0]
-                         + 32 * k["carry_logt"].numel(), FLOPS_PER_PAIR * w["pairs"]))
-        k4.update(bound(statistics.mean(b for b, _ in work), statistics.mean(o for _, o in work)))
+            for sfx, pairs in work.items():
+                slots = w["slots" + sfx]
+                row_bytes = TABLE_ROW_BYTES * (w["rows" + sfx] if k["gather"] else slots)
+                pairs.append((8 * slots + row_bytes + 16 * ranges_.shape[0]
+                              + 32 * k["carry_logt"].numel(), w["ops" + sfx]))
+        for sfx, pairs in work.items():
+            b = bound(statistics.mean(x for x, _ in pairs), statistics.mean(o for _, o in pairs))
+            k4.update(b if not sfx else {"bound_ms_batch": b["bound_ms"]})
         k4["library_ms"] = None
     tdist.barrier()
     torch.save({
@@ -983,10 +1054,13 @@ def run_dist(mult: float) -> dict:
             + f"; [live, sent, recv, dropped] per rank {stats.tolist()}; strip slots per phase "
             f"{[r['elements'] for r in ranks]}; launches per rank "
             f"{[{k: r['launches'][k] for k in ('expand_rows', 'blend_strip')} for r in ranks]}")
-        log(f"check {what}: blend_strip == plain bit for bit (colour and log T) on the {world} "
-            f"phases of every rank, kernel {k4['ms']:.3f} ms vs plain {k4['plain_ms']:.3f} ms, "
-            f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}) (mean per phase, rank 0 alone on "
-            f"the card); image vs the single-device uncapped "
+        log(f"check {what}: blend_strip == plain on the {world} phases of every rank (colour bit "
+            f"for bit; log T bit for bit where T >= the stop, both T below the stop elsewhere: "
+            f"{sum(r['k4']['log_t_stopped_early'] for r in ranks)} pixels stopped before the "
+            f"plain version's batch end), kernel {k4['ms']:.3f} ms vs plain "
+            f"{k4['plain_ms']:.3f} ms, bound {k4['bound_ms']:.4f} ms with P ({k4['bound_by']}), "
+            f"{k4['bound_ms_batch']:.4f} with P_batch (mean per phase, rank 0 alone on the card); "
+            f"image vs the single-device uncapped "
             f"frame float max |Δ| {float((img - ref).abs().max()):.3e}, 8-bit (max, share>1) per "
             f"channel {vs_ref}")
         out[(backend, world)] = {

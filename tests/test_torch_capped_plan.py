@@ -40,6 +40,7 @@ from vk3dgaussiansplatting_tpu_torch.core.config import RenderConfig
 from vk3dgaussiansplatting_tpu_torch.ops import capped as tcap
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import blend_kernel as tbk
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import expand_kernel
+from vk3dgaussiansplatting_tpu_torch.ops.keygen import GaussianFrameData
 
 torch.set_num_threads(1)
 SENTINEL = 0xFFFFFFFF
@@ -58,8 +59,7 @@ def test_patch_pass_matches_jax():
     jax_patch = jax.jit(jcap._patch_pass, static_argnames=("config",))
     want = jax_patch(jnp.asarray(img), jnp.asarray(valid), jel, jrg, jfr, config)
     tcfg = convert.config_from_jax(config)
-    got = tcap._patch_pass(torch.from_numpy(img), torch.from_numpy(valid), te, tr,
-                           tbk.pack_feature_table(tf), tcfg)
+    got = tcap._patch_pass(torch.from_numpy(img), torch.from_numpy(valid), te, tr, tf, tcfg)
     assert_image_close(got, want, "patch pass")
     assert not np.array_equal(got.numpy(), img)
 
@@ -299,19 +299,21 @@ def test_capped_port_renders_without_jax():
 
 def test_new_wrappers_reject_bad_inputs():
     cfg = RenderConfig(width=64, height=48)
-    table = torch.zeros((4, 10))
+    frame = GaussianFrameData(color_alpha=torch.zeros((4, 4)), cov2d=torch.zeros((4, 3)),
+                              cov_inv=torch.zeros((4, 3)), screen_pos=torch.zeros((4, 2)))
     index = torch.zeros(8, dtype=torch.int64)
     ranges = torch.zeros((cfg.num_tiles, 2), dtype=torch.int64)
-    for bad in ((table[:, :9], index, ranges), (table.double(), index, ranges),
-                (table, index.to(torch.int32), ranges), (table, index, ranges[:-1]),
-                (table, index, ranges.to(torch.int32))):
+    for bad in ((frame._replace(screen_pos=frame.screen_pos[:, :1]), index, ranges),
+                (frame._replace(color_alpha=frame.color_alpha.double()), index, ranges),
+                (frame, index.to(torch.int32), ranges), (frame, index, ranges[:-1]),
+                (frame, index, ranges.to(torch.int32))):
         with pytest.raises(ValueError):
             tbk.blend_flat(*bad, cfg, with_t=True)
     with pytest.raises(ValueError):
-        tbk.blend_flat(table, index, ranges, cfg, cap=-1)
+        tbk.blend_flat(frame, index, ranges, cfg, cap=-1)
     with pytest.raises(ValueError):
-        tbk.blend_flat(table, index, ranges, RenderConfig(width=64, height=48,
-                                                                   blend_batch_k=100))
+        tbk.blend_flat(frame, index, ranges, RenderConfig(width=64, height=48,
+                                                          blend_batch_k=100))
     counts = torch.tensor([2, 0, 3], dtype=torch.int32)
     with pytest.raises(ValueError):
         expand_kernel.expand_rows_streamed(torch.zeros((2, 3), dtype=torch.int64), counts, 8)

@@ -26,20 +26,14 @@
 // the block leaves as soon as every pixel is done (__syncthreads_or), which
 // is what makes saturated tiles cheap.  Each batch of 256 elements is copied
 // once into shared memory and read by every pixel.
-// - The copies are cp.async from the frame's own tensors (screen_pos float2,
-//   cov_inv three floats, color_alpha float4) into packed rows, double-
-//   buffered: the next batch's rows are in flight while the current batch is
-//   blended, and the ids of the batch after that are loaded a batch ahead,
-//   so the id -> row dependency stays off the critical path.  A dead slot
-//   (SENTINEL id) is a zero row: galpha 0, never eligible.
-// - The copying thread scales its conic by the exact powers of two -0.5,
-//   -1, -0.5 (pack_feature_table's multiplies, the same bits) and sets the
-//   row's skip threshold before the batch's barrier.
-// - A pair is skipped, expf and all, when f > 0 or f < thr, where
-//   thr = logf(cutoff / galpha) - 1e-3: below it galpha * expf(f) is under
-//   the cutoff by a margin far above expf's and logf's few-ulp errors, so a
-//   skipped pair is ineligible and the result cannot change.  NaN f or thr
-//   skip too: such a pair's alpha is NaN or <= 0, ineligible as well.
+// - The copies are cp.async from the frame's own tensors into packed rows
+//   (csrc/blend_rows.cuh), double-buffered: the next batch's rows are in
+//   flight while the current batch is blended, and the ids of the batch
+//   after that are loaded a batch ahead, so the id -> row dependency stays
+//   off the critical path.
+// - A pair is skipped, expf and all, when f > 0 or f < thr (the row's skip
+//   threshold, blend_rows.cuh): such a pair is ineligible, so the result
+//   cannot change.
 // - One pixel a thread: two pixels a thread (one shared row read for two
 //   pairs) measured slower at garden30k_1080p (PERF.md, K2 findings).
 //
@@ -48,58 +42,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "blend_rows.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kThreads = kTile * kTile;  // one pixel a thread
-constexpr int kBatch = kThreads;         // elements a batch, one copied a thread
-constexpr int64_t kSentinel = 0xFFFFFFFFLL;
-constexpr float kSkipMargin = 1e-3f;
-
-// One batch of element rows in shared memory.
-struct Batch {
-  float4 geo[kBatch];    // gx, gy, a', b'
-  float2 geo2[kBatch];   // c', skip threshold
-  float4 color[kBatch];  // r, g, b, galpha
-};
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(kBytes)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Start the copies of gaussian idx's row into slot s, or write a dead
-// slot's zero row.
-__device__ __forceinline__ void fetch(Batch& b, int s, int64_t idx,
-                                      const float2* __restrict__ pos,
-                                      const float* __restrict__ cov,
-                                      const float4* __restrict__ color) {
-  if (idx == kSentinel) {
-    b.geo[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    b.geo2[s] = make_float2(0.0f, 0.0f);
-    b.color[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    return;
-  }
-  cp_async<8>(&b.geo[s], pos + idx);
-  cp_async<4>(&b.geo[s].z, cov + 3 * idx);
-  cp_async<4>(&b.geo[s].w, cov + 3 * idx + 1);
-  cp_async<4>(&b.geo2[s].x, cov + 3 * idx + 2);
-  cp_async<16>(&b.color[s], color + idx);
-}
+using namespace vk3d;
 
 __global__ void __launch_bounds__(kThreads)
 blend_tiles_kernel(const float2* __restrict__ pos, const float* __restrict__ cov,
@@ -122,31 +69,26 @@ blend_tiles_kernel(const float2* __restrict__ pos, const float* __restrict__ cov
   bool done = px_i >= width || py_i >= height;
 
   // Batch 0's rows in flight, batch 1's id loaded.
-  if (start + t < end) fetch(s_batch[0], t, index[start + t], pos, cov, color);
+  if (start + t < end) fetch_frame_row(s_batch[0], t, index[start + t], pos, cov, color);
   cp_async_commit();
-  int64_t next_idx = start + kBatch + t < end ? index[start + kBatch + t] : kSentinel;
+  int64_t next_idx = start + kStage + t < end ? index[start + kStage + t] : kSentinel;
 
   int buf = 0;
-  for (int64_t k0 = start; k0 < end; k0 += kBatch, buf ^= 1) {
+  for (int64_t k0 = start; k0 < end; k0 += kStage, buf ^= 1) {
     Batch& b = s_batch[buf];
     cp_async_wait_all();  // this thread's copies of batch k0
-    if (k0 + t < end) {
-      b.geo[t].z *= -0.5f;
-      b.geo[t].w *= -1.0f;
-      b.geo2[t].x *= -0.5f;
-      b.geo2[t].y = logf(alpha_cutoff / b.color[t].w) - kSkipMargin;
-    }
+    if (k0 + t < end) finish_frame_row(b, t, alpha_cutoff);
     // Barrier: the batch is visible to every pixel, and every pixel is past
     // the previous batch, so its buffer is free; and the block-wide exit
     // (nothing is in flight here).
     if (!__syncthreads_or(!done)) break;
-    const int64_t k1 = k0 + kBatch;
-    if (k1 + t < end) fetch(s_batch[buf ^ 1], t, next_idx, pos, cov, color);
+    const int64_t k1 = k0 + kStage;
+    if (k1 + t < end) fetch_frame_row(s_batch[buf ^ 1], t, next_idx, pos, cov, color);
     cp_async_commit();
-    next_idx = k1 + kBatch + t < end ? index[k1 + kBatch + t] : kSentinel;
+    next_idx = k1 + kStage + t < end ? index[k1 + kStage + t] : kSentinel;
     if (done) continue;
 
-    const int n = static_cast<int>(end - k0 < kBatch ? end - k0 : kBatch);
+    const int n = static_cast<int>(end - k0 < kStage ? end - k0 : kStage);
 #pragma unroll 2  // measured faster than 1 and 4 at garden30k_1080p
     for (int j = 0; j < n; ++j) {
       const float4 g = b.geo[j];

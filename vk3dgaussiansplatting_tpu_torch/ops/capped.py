@@ -18,9 +18,10 @@ What differs from the JAX module, and why:
 
   * Kernels.  The layout's chunk->tile map is K1 (`expand_rows`), the id
     copy K5 (`compact_runs`), the blend K3 (`blend_flat`); their wrappers
-    run the plain versions on CPU tensors.  K3 gathers float32 rows of the
-    [N, 10] `pack_feature_table` by packed gaussian id itself, so the JAX
-    path's two width-4 tables, its float16 rgb and the [16, ep] feature
+    run the plain versions on CPU tensors.  K3 reads each packed
+    element's float32 row of the frame data (screen_pos, cov_inv,
+    color_alpha) by gaussian id itself, so no feature table is built: the
+    JAX path's two width-4 tables, its float16 rgb and the [16, ep] feature
     array of `capped_gather` are gone; `capped_gather` has no
     counterpart.
   * Branches.  JAX picks fast path / patch / full fallback with `lax.cond`
@@ -89,7 +90,6 @@ class CapsState(NamedTuple):
 class CappedLayout(NamedTuple):
     """The packed layout of one frame (`capped_layout`).
 
-    table:    [N, 10] float32 per-gaussian feature rows (K3 gathers them).
     gid:      [ep] int64 gaussian id per packed slot, SENTINEL where dead.
     pstart:   [T] int64 packed start of each tile's live run.
     counts:   [T] int64 elements blended per tile (cap- and crossing-cut).
@@ -99,7 +99,6 @@ class CappedLayout(NamedTuple):
     filtered: [T] bool tiles under a threshold (None without CapsState).
     """
 
-    table: torch.Tensor
     gid: torch.Tensor
     pstart: torch.Tensor
     counts: torch.Tensor
@@ -188,7 +187,7 @@ def _live_lanes(lo, hi):
     return ((lane >= lo[:, None]) & (lane < hi[:, None])).reshape(-1)
 
 
-def _layout(elements, ranges, frame, config, caps, thr, ep):
+def _layout(elements, ranges, config, caps, thr, ep):
     wmax = _round_up(config.blend_cap_max, SEG_ALIGN) + SEG_ALIGN
     starts = ranges[:, 0]
     # FindRanges' quirk at a full list can leave end < start (ops/ranges.py);
@@ -221,7 +220,6 @@ def _layout(elements, ranges, frame, config, caps, thr, ep):
     gid_raw = compact_kernel.compact_runs(elements.index, starts, sbase, ep, wmax)
     live = seg_live & (gid_raw != SENTINEL)
     return CappedLayout(
-        table=blend_kernel.pack_feature_table(frame),
         gid=torch.where(live, gid_raw, SENTINEL),
         pstart=sbase + off,
         counts=counts,
@@ -243,11 +241,13 @@ def _split_caps(caps, config: RenderConfig):
 def capped_layout(elements, ranges, frame, config: RenderConfig, caps):
     """Phase 1: the packed layout and id compaction of a frame (K1, K5).
 
-    caps: [T] int64 caps or a CapsState (enables threshold trimming)."""
+    caps: [T] int64 caps or a CapsState (enables threshold trimming).
+    `frame` (JAX's signature) is not read: K3 reads the frame data itself
+    in `capped_finish`."""
     capacity = elements.tile.shape[0]
     ep = packed_capacity_temporal(config, capacity)
     c, thr, _floor = _split_caps(caps, config)
-    return _layout(elements, ranges, frame, config, c, thr, ep)
+    return _layout(elements, ranges, config, c, thr, ep)
 
 
 def blend_tiles_capped(elements, ranges, frame, config: RenderConfig):
@@ -259,12 +259,12 @@ def blend_tiles_capped(elements, ranges, frame, config: RenderConfig):
     blend = blend_kernel.blend_flat
     ep = packed_capacity(config, elements.tile.shape[0])
     caps = torch.full((config.num_tiles,), cap, dtype=torch.int64, device=ranges.device)
-    lay = _layout(elements, ranges, frame, config, caps, None, ep)
+    lay = _layout(elements, ranges, config, caps, None, ep)
     pranges = torch.stack([lay.pstart, lay.pstart + lay.counts], dim=1)
-    img, t_out = blend(lay.table, lay.gid, pranges, config, with_t=True)
+    img, t_out = blend(frame, lay.gid, pranges, config, with_t=True)
     valid = (lay.r <= caps) | (t_out.amax(dim=1) < _f32(config.transmittance_stop))
     if not bool(valid.all() & lay.fits):  # the frame's host sync
-        img = blend(lay.table, elements.index, ranges, config)
+        img = blend(frame, elements.index, ranges, config)
     return img
 
 
@@ -316,7 +316,7 @@ def _policy_update(config: RenderConfig, ep: int, caps, thr, floor, r, counts, s
     return caps_next, thr_next, floor_next, n_grow
 
 
-def _patch_pass(img, valid, elements, ranges, table, config: RenderConfig):
+def _patch_pass(img, valid, elements, ranges, frame, config: RenderConfig):
     """Re-blend the (<= PATCH_TILES) invalid tiles at full range and merge
     them into `img`.  The caller has checked the budgets."""
     t = config.num_tiles
@@ -352,7 +352,7 @@ def _patch_pass(img, valid, elements, ranges, table, config: RenderConfig):
     count_t = torch.zeros(t + 1, dtype=torch.int64, device=device).scatter_add_(
         0, slot, r_p)[:t]
     pranges = torch.stack([pstart_t, pstart_t + count_t], dim=1)
-    img_p = blend_kernel.blend_flat(table, gid, pranges, config)
+    img_p = blend_kernel.blend_flat(frame, gid, pranges, config)
 
     gh, gw, ts = config.grid_height, config.grid_width, config.tile_size
     vmask = valid.reshape(gh, 1, gw, 1).expand(gh, ts, gw, ts).reshape(gh * ts, gw * ts)
@@ -371,7 +371,7 @@ def capped_finish(lay: CappedLayout, caps, elements, ranges, frame, config: Rend
     c, thr, floor = _split_caps(caps, config)
     with section(timer, "blend"):
         pranges = torch.stack([lay.pstart, lay.pstart + lay.counts], dim=1)
-        img, t_out = blend(lay.table, lay.gid, pranges, config, with_t=True)
+        img, t_out = blend(frame, lay.gid, pranges, config, with_t=True)
     with section(timer, "policy"):
         t_max = t_out.amax(dim=1)
         r, fits = lay.r, lay.fits
@@ -393,9 +393,9 @@ def capped_finish(lay: CappedLayout, caps, elements, ranges, frame, config: Rend
     with section(timer, "patch"):
         if not fast:
             if patch:
-                img = _patch_pass(img, valid, elements, ranges, lay.table, config)
+                img = _patch_pass(img, valid, elements, ranges, frame, config)
             else:
-                img = blend(lay.table, elements.index, ranges, config)
+                img = blend(frame, elements.index, ranges, config)
     ok = ok | patchable
     if thr is not None:
         n_unfix = _count_unfixable(valid, thr)

@@ -4,10 +4,11 @@ Each `csrc/*.cu` file compiles with its own `nvcc` process, all started
 together, and the objects link into one shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so a build takes
 seconds).  The library lands in the package's `_build/` directory under a
-name keyed by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads the existing file.  Nothing here runs at import:
-the first kernel launch calls `load_library()`.  A missing `nvcc` or a
-failed compile raises; there is no fallback.  ptxas's resource report
+name keyed by a hash of the sources, the headers they include and the
+flags, so an edited source or header rebuilds and an unchanged tree loads
+the existing file.  Nothing here runs at import: the first kernel launch
+calls `load_library()`.  A missing `nvcc` or a failed compile raises;
+there is no fallback.  ptxas's resource report
 (-Xptxas=-v) is kept beside the library as `<library>.log`.
 """
 
@@ -48,18 +49,19 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _F32, _F32, _P, _I32, _P],
         ctypes.c_int,
     ),
-    # table, index, num_index, ranges, num_tiles, cap, batch_k, grid_w,
-    # width, height, alpha_cutoff, transmittance_stop, out, t_out (or
-    # NULL), device, stream
+    # screen_pos, cov_inv, color_alpha, index, num_index, ranges, num_tiles,
+    # cap, batch_k, grid_w, width, height, alpha_cutoff, transmittance_stop,
+    # out, t_out (or NULL), device, stream
     "vk3d_blend_flat": (
-        [_P, _P, _I64, _P, _I32, _I64, _I32, _I32, _I32, _I32, _F32, _F32, _P, _P, _I32, _P],
+        [_P, _P, _P, _P, _I64, _P, _I32, _I64, _I32, _I32, _I32, _I32, _F32, _F32, _P, _P, _I32,
+         _P],
         ctypes.c_int,
     ),
-    # rows, index, num_slots, gather, ranges, num_tiles, tile_base, batch_k,
-    # grid_w, alpha_cutoff, transmittance_stop, carry_color, carry_logt,
-    # out_color, out_logt, device, stream
+    # rows, index, num_slots, gather, ranges, num_tiles, tile_base, grid_w,
+    # alpha_cutoff, transmittance_stop, carry_color, carry_logt, out_color,
+    # out_logt, device, stream
     "vk3d_blend_strip": (
-        [_P, _P, _I64, _I32, _P, _I32, _I32, _I32, _I32, _F32, _F32, _P, _P, _P, _P, _I32, _P],
+        [_P, _P, _I64, _I32, _P, _I32, _I32, _I32, _F32, _F32, _P, _P, _P, _P, _I32, _P],
         ctypes.c_int,
     ),
     # src, e, astarts, sbases, nt, ep, wmax, out, device, stream
@@ -90,8 +92,10 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
+    """The library's path, keyed by the flags, the sources and the headers
+    they include (csrc/*.cuh)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libvk3d_kernels_{digest.hexdigest()[:16]}.so"

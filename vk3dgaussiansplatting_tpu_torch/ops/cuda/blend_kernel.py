@@ -3,14 +3,14 @@ csrc/blend_flat.cu and csrc/blend_strip.cu.
 
 K2 `blend_tiles` replaces vk3dgaussiansplatting_tpu/ops/pallas/
 blend_kernel.py:blend_tiles_pallas together with the feature build inside
-it: it reads each element's row of the frame data (GaussianFrameData) by
-id, so the uncapped frame builds no feature table.  K3 `blend_flat`
-replaces blend_flat_core / blend_tiles_pallas_flat, the capped path's blend
-with its per-pixel transmittance output; K4 `blend_strip` replaces
-blend_strip_colors_pallas, the distributed frame's carry-aware strip blend.
-K3 gathers each element's row from the per-gaussian [N, 10]
-`pack_feature_table` by id, and K4 reads the rows that the exchange routed
-in sorted order (or gathers by id too), so there is no [16, E] sorted-order
+it.  K3 `blend_flat` replaces blend_flat_core / blend_tiles_pallas_flat,
+the capped path's blend with its per-pixel transmittance output; K4
+`blend_strip` replaces blend_strip_colors_pallas, the distributed frame's
+carry-aware strip blend.  All three stage their rows through
+csrc/blend_rows.cuh.  K2 and K3 read each element's row of the frame data
+by id, so neither the uncapped nor the capped frame builds a feature
+table; K4 reads the `pack_feature_table` rows that the exchange routed in
+sorted order (or gathers them by id), so there is no [16, E] sorted-order
 feature array as on the TPU.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
@@ -52,14 +52,6 @@ def pack_feature_table(frame: GaussianFrameData) -> torch.Tensor:
     ).contiguous()
 
 
-def _check(table, index, ranges, config: RenderConfig):
-    if table.dim() != 2 or table.shape[1] != blend_ops.NUM_TABLE_COLS or table.dtype != torch.float32:
-        raise ValueError(f"table must be [N, 10] float32, got {tuple(table.shape)} {table.dtype}")
-    _check_index_ranges(index, ranges, config)
-    if not (table.device == index.device == ranges.device):
-        raise ValueError("table, index and ranges must be on one device")
-
-
 def _check_index_ranges(index, ranges, config: RenderConfig) -> None:
     if index.dim() != 1 or index.dtype != torch.int64:
         raise ValueError(f"index must be [E] int64, got {tuple(index.shape)} {index.dtype}")
@@ -72,8 +64,8 @@ def _check_index_ranges(index, ranges, config: RenderConfig) -> None:
         raise ValueError("the blend kernel is built for 16x16 tiles")
 
 
-# The frame tensors K2 reads, with their widths and the alignment its
-# vector copies need (bytes).
+# The frame tensors K2 and K3 read, with their widths and the alignment
+# their vector copies need (bytes).
 _FRAME_ROWS = (("screen_pos", 2, 8), ("cov_inv", 3, 4), ("color_alpha", 4, 16))
 
 
@@ -90,6 +82,18 @@ def _check_frame(frame: GaussianFrameData, index, ranges, config: RenderConfig) 
     devices = {getattr(frame, name).device for name, _w, _a in _FRAME_ROWS}
     if len(devices | {index.device, ranges.device}) != 1:
         raise ValueError("the frame tensors, index and ranges must be on one device")
+
+
+def _frame_pointers(frame: GaussianFrameData) -> list[int]:
+    """The frame tensors' device pointers, in _FRAME_ROWS order; raises if
+    one is not aligned for the kernels' vector copies."""
+    ptrs = []
+    for name, _width, align in _FRAME_ROWS:
+        ptr = getattr(frame, name).data_ptr()
+        if ptr % align:
+            raise ValueError(f"frame.{name} must be {align}-byte aligned")
+        ptrs.append(ptr)
+    return ptrs
 
 
 def blend_tiles(
@@ -112,15 +116,11 @@ def blend_tiles(
         return blend_ops.blend_rows_plain(pack_feature_table(frame), elements.index, ranges, config)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    for name, _width, align in _FRAME_ROWS:
-        if getattr(frame, name).data_ptr() % align:
-            raise ValueError(f"frame.{name} must be {align}-byte aligned")
+    ptrs = _frame_pointers(frame)
     index, ranges = elements.index.contiguous(), ranges.contiguous()
     out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=device)
     err = _build.load_library().vk3d_blend_tiles(
-        frame.screen_pos.data_ptr(),
-        frame.cov_inv.data_ptr(),
-        frame.color_alpha.data_ptr(),
+        *ptrs,
         index.data_ptr(),
         ranges.data_ptr(),
         config.num_tiles,
@@ -139,7 +139,7 @@ def blend_tiles(
 
 
 def blend_flat(
-    table: torch.Tensor,
+    frame: GaussianFrameData,
     index: torch.Tensor,
     ranges: torch.Tensor,
     config: RenderConfig,
@@ -150,30 +150,35 @@ def blend_flat(
     """K3: blend every tile's [start, end) of `index` with the TPU flat
     kernel's transmittance semantics (ops/blend.py:blend_flat_plain).
 
-    table: [N, 10] float32; index: [E] int64 gaussian ids (SENTINEL, and
-    slots >= E, are dead); ranges: [num_tiles, 2] int64; cap > 0 cuts each
-    range to its first `cap` elements.  Returns the [H, W, 3] float32 image
-    in [0, 1], and with `with_t` also the per-pixel outgoing transmittance
-    [num_tiles, 256] float32."""
+    The kernel reads frame.screen_pos [N, 2], frame.cov_inv [N, 3] and
+    frame.color_alpha [N, 4] (contiguous float32, as K2) by the gaussian ids
+    index [E] int64 (SENTINEL, and slots >= E, are dead); ranges:
+    [num_tiles, 2] int64; cap > 0 cuts each range to its first `cap`
+    elements.  Returns the [H, W, 3] float32 image in [0, 1], and with
+    `with_t` also the per-pixel outgoing transmittance [num_tiles, 256]
+    float32; both equal the plain version's bit for bit.  On CPU tensors:
+    blend_flat_plain on pack_feature_table(frame)."""
     global FLAT_LAUNCHES
-    _check(table, index, ranges, config)
+    _check_frame(frame, index, ranges, config)
     if config.blend_batch_k <= 0 or config.blend_batch_k % blend_ops.ALIGN_K:
         raise ValueError(f"blend_batch_k must be a positive multiple of {blend_ops.ALIGN_K}")
     if cap < 0:
         raise ValueError(f"cap must be >= 0, got {cap}")
-    if table.device.type == "cpu":
-        return blend_ops.blend_flat_plain(table, index, ranges, config, cap=cap, with_t=with_t)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
-    table, index, ranges = table.contiguous(), index.contiguous(), ranges.contiguous()
-    out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=table.device)
+    device = frame.screen_pos.device
+    if device.type == "cpu":
+        return blend_ops.blend_flat_plain(pack_feature_table(frame), index, ranges, config,
+                                          cap=cap, with_t=with_t)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    ptrs = _frame_pointers(frame)
+    index, ranges = index.contiguous(), ranges.contiguous()
+    out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=device)
     t_out = (
-        torch.empty((config.num_tiles, config.tile_size**2), dtype=torch.float32,
-                    device=table.device)
+        torch.empty((config.num_tiles, config.tile_size**2), dtype=torch.float32, device=device)
         if with_t else None
     )
     err = _build.load_library().vk3d_blend_flat(
-        table.data_ptr(),
+        *ptrs,
         index.data_ptr(),
         index.shape[0],
         ranges.data_ptr(),
@@ -187,8 +192,8 @@ def blend_flat(
         config.transmittance_stop,
         out.data_ptr(),
         t_out.data_ptr() if with_t else None,
-        table.device.index,
-        torch.cuda.current_stream(table.device).cuda_stream,
+        device.index,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(err, "blend_flat")
     FLAT_LAUNCHES += 1
@@ -205,8 +210,7 @@ def blend_tiles_flat(
     with_t: bool = False,
 ):
     """K3 over a sorted frame (blend_tiles_pallas_flat's signature)."""
-    return blend_flat(pack_feature_table(frame), elements.index, ranges, config,
-                      cap=cap, with_t=with_t)
+    return blend_flat(frame, elements.index, ranges, config, cap=cap, with_t=with_t)
 
 
 def blend_strip(
@@ -224,10 +228,18 @@ def blend_strip(
     (colour, log T) carry (ops/blend.py:blend_strip_plain has the semantics).
 
     rows: [E, 10] float32 rows in slot order, or with `gather` the [N, 10]
-    per-gaussian table read by `index`; index: [E] int64 gaussian ids
-    (SENTINEL, and slots >= E, are dead); ranges: [T_s, 2] int64 into the
-    slots; carry_color: [T_s, 256, 3] float32; carry_logt: [T_s, 256]
-    float32.  Returns (colors [T_s, 256, 3] unclipped, logt_end [T_s, 256])."""
+    per-gaussian table read by `index` (pack_feature_table's columns,
+    8-byte aligned on the card); index: [E] int64 gaussian ids (SENTINEL,
+    and slots >= E, are dead); ranges: [T_s, 2] int64 into the slots;
+    carry_color: [T_s, 256, 3] float32; carry_logt: [T_s, 256] float32.
+    Returns (colors [T_s, 256, 3] unclipped, logt_end [T_s, 256]).
+
+    The kernel stops each pixel once its T < transmittance_stop, where the
+    plain version keeps multiplying T to the end of the batch.  So the
+    colours equal the plain version's bit for bit, and log T does wherever
+    the plain T >= transmittance_stop; elsewhere both T are below the stop
+    (their logs at most float32 log(transmittance_stop)), which is all the
+    next phase's carry reads."""
     global STRIP_LAUNCHES
     t_s = ranges.shape[0]
     p = config.tile_size**2
@@ -261,6 +273,8 @@ def blend_strip(
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
     rows, index, ranges = rows.contiguous(), index.contiguous(), ranges.contiguous()
+    if rows.data_ptr() % 8:
+        raise ValueError("rows must be 8-byte aligned (the kernel copies 8-byte pieces)")
     carry_color, carry_logt = carry_color.contiguous(), carry_logt.contiguous()
     colors = torch.empty_like(carry_color)
     logt = torch.empty_like(carry_logt)
@@ -272,7 +286,6 @@ def blend_strip(
         ranges.data_ptr(),
         t_s,
         tile_base,
-        config.blend_batch_k,
         config.grid_width,
         config.alpha_cutoff,
         config.transmittance_stop,
@@ -286,3 +299,24 @@ def blend_strip(
     _build.check_launch(err, "blend_strip")
     STRIP_LAUNCHES += 1
     return colors, logt
+
+
+def strip_mismatch(got, want, t_stop: float) -> str | None:
+    """How K4's (colors, logt) `got` breaks its contract with the plain
+    version's `want` (blend_strip's docstring), or None: colours equal bit
+    for bit; log T equal where the plain T >= t_stop, both T below t_stop
+    elsewhere.  In log space, against the float32 log(t_stop): equal where
+    the plain log T is above it, at or below it elsewhere (a T just under
+    the stop can round to it)."""
+    (colors, logt), (want_colors, want_logt) = got, want
+    if not torch.equal(colors, want_colors):
+        d = (colors - want_colors).abs().nan_to_num(posinf=float("inf"))
+        return (f"colour differs from its plain version at {int((colors != want_colors).sum())} "
+                f"values, max |Δ| {float(d.max())}")
+    log_stop = want_logt.new_tensor(t_stop).log()
+    alive = want_logt > log_stop
+    if not torch.equal(logt[alive], want_logt[alive]):
+        return f"log T differs where T >= the stop at {int((logt != want_logt)[alive].sum())} pixels"
+    if not bool((logt[~alive] <= log_stop).all()):
+        return "log T is above log(stop) where the plain T is below the stop"
+    return None
