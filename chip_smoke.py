@@ -41,11 +41,24 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
   check    on each capped scene's last frame: K3 (reading the frame data by
            id) against its plain version on pack_feature_table's rows, image
            and T bit for bit (the tiles' validity and the next caps,
-           thresholds and floors from either T must be equal), K5 and
-           K1 (chunk map) bit-exact on live lanes, K6 bit-exact on the
-           layout's own chunk offsets, K1' (garden) bit-exact; the capped
+           thresholds and floors from either T must be equal); K5
+           compact_slabs on the layout's call and on a patch pass's (the
+           frame's longest patchable tiles marked invalid) bit for bit on
+           every lane with its plain version and with the parent's layout
+           code (the unmasked K5, the K1 chunk map and the mask), and the
+           layout's gid; the unmasked compact_runs and K6 (on the slabs'
+           chunk offsets) on every lane, K1' (garden) bit-exact; the capped
            image against the uncapped K2 frame of the same camera within
            ±1 8-bit on r, g and b; ok true on the last timed frame
+  app      the app path at garden30k_1080p's size and calibrated scale:
+           write_gaussian_ply (~1.38 GB, a temporary directory), then
+           load_gaussians through the native parser (ply_load_s, the
+           parser from its log line), its table bit for bit with the numpy
+           parser's; the CLI on the card (--ply, 1920x1080, 3 frames, --out:
+           K1 and K2 once a frame), its PNG read back with the port's
+           read_png bit for bit with Renderer.draw on the same table and
+           camera; the .ply fixture rendered as tests/test_ply_fixture.py
+           does, within ±1 8-bit of tests/golden/ply_fixture.png
   motion   garden's chained plan for 10 more frames at camera step 1e-3,
            recorded (mode, live, ok, unfixable tiles), not checked
   dist     the distributed depth-banded frame (parallel/dist.py) at
@@ -88,7 +101,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import linecache
+import logging
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -100,8 +115,11 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from vk3dgaussiansplatting_tpu_torch.app import cli
 from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL, RenderConfig
-from vk3dgaussiansplatting_tpu_torch.models.gaussians import GaussianTable
+from vk3dgaussiansplatting_tpu_torch.io import image as image_io
+from vk3dgaussiansplatting_tpu_torch.io import ply
+from vk3dgaussiansplatting_tpu_torch.models.gaussians import GaussianTable, from_raw_ply_columns
 from vk3dgaussiansplatting_tpu_torch.ops import blend as blend_ops
 from vk3dgaussiansplatting_tpu_torch.ops import capped as capped_ops
 from vk3dgaussiansplatting_tpu_torch.ops import keygen, ranges, sort
@@ -170,6 +188,7 @@ COUNTERS = {
     "expand_rows_streamed": (expand_kernel, "STREAMED_LAUNCHES"),
     "blend_tiles": (blend_kernel, "LAUNCHES"),
     "blend_flat": (blend_kernel, "FLAT_LAUNCHES"),
+    "compact_slabs": (compact_kernel, "SLABS_LAUNCHES"),
     "compact_runs": (compact_kernel, "RUNS_LAUNCHES"),
     "compact_segments": (compact_kernel, "SEGMENTS_LAUNCHES"),
     "blend_strip": (blend_kernel, "STRIP_LAUNCHES"),
@@ -276,7 +295,7 @@ class Capture:
         (blend_kernel, "pack_feature_table"),
         (blend_kernel, "blend_flat"),
         (blend_kernel, "blend_strip"),
-        (compact_kernel, "compact_runs"),
+        (compact_kernel, "compact_slabs"),
         (capped_ops, "capped_finish"),
     )
 
@@ -739,7 +758,7 @@ def run_capped(name: str, mult: float):
     tables = cap.counts.get("pack_feature_table", 0)
     if tables:
         raise RuntimeError(f"{name} capped: the capped frames built {tables} feature tables")
-    path_kernels = ["expand_rows", "blend_flat", "compact_runs"]
+    path_kernels = ["expand_rows", "blend_flat", "compact_slabs"]
     if chained:
         path_kernels.append("expand_rows_streamed")
     if min(launches[k] for k in path_kernels) == 0:
@@ -765,6 +784,68 @@ def run_capped(name: str, mult: float):
         f"frame {syncs / SYNC_FRAMES:g} {sync_lines}; launches {launches}; per timed frame "
         f"{per_frame}")
     return renderer, cam, cap, out, launches, per_frame
+
+
+def parent_gid(args, wmax: int) -> torch.Tensor:
+    """The layout ids as the parent tree computed them on the card: the
+    unmasked K5 kernel, then the live-lane mask from the K1 chunk map
+    (ops/capped.py:_layout; the parent's patch pass found the same lanes by
+    a search over the slab ends)."""
+    src, starts, sbase, slabw, off, counts, ep = args
+    gid_raw = compact_kernel.compact_runs(src, starts, sbase, ep, wmax)
+    nchunks, align = ep // compact_kernel.CHUNK, compact_kernel.CHUNK
+    cols, _ = expand_kernel.expand_rows(
+        torch.stack([sbase // align, counts, off]).to(torch.int32), slabw // align, nchunks)
+    cols = cols.to(torch.int64)
+    chunk_local = (torch.arange(nchunks, device=src.device) - cols[0]) * align
+    lo, hi = cols[2] - chunk_local, cols[2] + cols[1] - chunk_local
+    lane = torch.arange(align, device=src.device)
+    seg_live = ((lane >= lo[:, None]) & (lane < hi[:, None])).reshape(-1)
+    return torch.where(seg_live & (gid_raw != SENTINEL), gid_raw, SENTINEL)
+
+
+def check_slabs(args, wmax: int, what: str, gid: torch.Tensor | None = None) -> dict:
+    """compact_slabs on one call's own inputs against its plain version,
+    the parent's layout code (`parent_gid`) and, given, the layout's gid:
+    every lane bit for bit.  Its bound: 8 B written a lane, 8 B read a live
+    lane and its five [T] int64 tables."""
+    src, starts, sbase, _slabw, off, counts, ep = args
+    got = compact_kernel.compact_slabs(*args)
+    refs = {"plain version": compact_kernel.compact_slabs_plain(*args),
+            "parent's layout code": parent_gid(args, wmax)}
+    if gid is not None:
+        refs["layout's gid"] = gid
+    for ref_name, ref in refs.items():
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"{what}: compact_slabs differs from the {ref_name} at "
+                               f"{int((got != ref).sum())} of {ep} lanes")
+    live = int(torch.clamp(torch.minimum(counts, ep - sbase - off), min=0).sum())
+    return {
+        "max_abs_err": int((got - refs["plain version"]).abs().max()) if ep else 0,
+        "library_ms": None,
+        "ep": ep,
+        "live": live,
+        **bound(8 * ep + 8 * live + 40 * starts.shape[0], 0),
+        "ms": cuda_ms(lambda: compact_kernel.compact_slabs(*args), 20),
+        # The kernel alone, from the profiler (ms includes the host's launch).
+        "device_ms": device_breakdown(lambda: compact_kernel.compact_slabs(*args)),
+        "plain_ms": cuda_ms(lambda: compact_kernel.compact_slabs_plain(*args), 1),
+        "parent_ms": cuda_ms(lambda: parent_gid(args, wmax), 10),
+    }
+
+
+def forced_patch_call(lay, elements, rng_, frame, config: RenderConfig, img):
+    """The patch pass's compact_slabs arguments on a frame's own layout:
+    the (up to 5) longest tiles the pass can take marked invalid."""
+    r = lay.r
+    fits = (r > 0) & (r <= capped_ops.PATCH_WMAX - capped_ops.SEG_ALIGN)
+    pick = torch.topk(torch.where(fits, r, -1), 5).indices
+    pick = pick[fits[pick]]
+    valid = torch.ones_like(fits)
+    valid[pick] = False
+    with Capture() as c:
+        capped_ops._patch_pass(img, valid, elements, rng_, frame, config)
+    return c.calls["compact_slabs"][-1][0], int(pick.numel())
 
 
 def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) -> dict:
@@ -818,21 +899,31 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
             blend_kernel.pack_feature_table(frame), lay.gid, pranges, config, with_t=True), 1),
     }
 
-    # K5 (the layout's call: the largest ep) and K6 on its chunk offsets.
-    (src, starts, sbases, ep5, wmax), _ = max(cap.calls["compact_runs"], key=lambda c: c[0][3])
-    live = lay.gid != SENTINEL
+    # K5: compact_slabs on the layout's call and on a patch pass's, against
+    # its plain version and the parent's layout code, every lane; the
+    # unmasked compact_runs on the layout's slabs, every lane.
+    slabs = next(a for a, _k in reversed(cap.calls["compact_slabs"]) if a[6] == ep)
+    wmax = capped_ops._round_up(config.blend_cap_max, capped_ops.SEG_ALIGN) + capped_ops.SEG_ALIGN
+    k5 = check_slabs(slabs, wmax, f"{name} layout", lay.gid)
+    patch_args, patch_tiles = forced_patch_call(lay, elements, rng_, frame, config, out.image)
+    k5_patch = check_slabs(patch_args, capped_ops.PATCH_WMAX, f"{name} patch pass")
+    res["compact_slabs"] = {**k5, "patch": k5_patch, "patch_tiles": patch_tiles}
+    src, starts, sbases, _slabw, _off, _counts, ep5 = slabs
     got = compact_kernel.compact_runs(src, starts, sbases, ep5, wmax)
     want = compact_kernel.compact_runs_plain(src, starts, sbases, ep5, wmax)
-    if not torch.equal(got[live], want[live]) or not torch.equal(got[live], lay.gid[live]):
-        raise RuntimeError(f"{name}: compact_runs differs on live lanes")
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{name}: compact_runs differs from its plain version at "
+                           f"{int((got != want).sum())} of {ep5} lanes")
     res["compact_runs"] = {
-        "max_abs_err": int((got[live] - want[live]).abs().max()),
+        "max_abs_err": int((got - want).abs().max()),
         "library_ms": None,
         **bound(16 * ep5 + 16 * starts.shape[0], 0),
         "ms": cuda_ms(lambda: compact_kernel.compact_runs(src, starts, sbases, ep5, wmax), 20),
         "plain_ms": cuda_ms(lambda: compact_kernel.compact_runs_plain(src, starts, sbases, ep5,
                                                                      wmax), 1),
     }
+    # K6 on the chunk offsets of the same slabs.
+    live = lay.gid != SENTINEL
     astarts, sb = compact_kernel._runs_offsets(src, starts, sbases, ep5, wmax)
     chunk0 = torch.arange(ep5 // compact_kernel.CHUNK, device=src.device) * compact_kernel.CHUNK
     owner = torch.clamp(torch.searchsorted(sb, chunk0, right=True) - 1, min=0)
@@ -852,19 +943,16 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         "plain_ms": cuda_ms(lambda: compact_kernel.compact_segments_plain(src, src0, ep5), 3),
     }
 
-    # K1 as the layout's chunk map (3 columns), and K1' under the prefilter.
-    for key in ("expand_rows", "expand_rows_streamed"):
-        calls = [c for c in cap.calls.get(key, []) if key != "expand_rows" or c[0][0].shape[0] == 3]
-        if not calls:
-            continue
-        (cols, counts, capacity), _ = calls[-1]
-        fn = getattr(expand_kernel, key)
+    # K1' under the prefilter.
+    if cap.calls.get("expand_rows_streamed"):
+        (cols, counts, capacity), _ = cap.calls["expand_rows_streamed"][-1]
+        fn = expand_kernel.expand_rows_streamed
         g, total = fn(cols, counts, capacity)
         w, want_total = expand_kernel.expand_rows_plain(cols, counts, capacity)
         n_live = min(int(total), capacity)
         if int(total) != int(want_total) or not torch.equal(g[:, :n_live], w[:, :n_live]):
-            raise RuntimeError(f"{name}: {key} differs from its plain version")
-        res[key if key == "expand_rows_streamed" else "chunk_map"] = {
+            raise RuntimeError(f"{name}: expand_rows_streamed differs from its plain version")
+        res["expand_rows_streamed"] = {
             "max_abs_err": int((g.to(torch.int64) - w.to(torch.int64)).abs().max()),
             "ms": cuda_ms(lambda: fn(cols, counts, capacity), 20),
             "plain_ms": cuda_ms(lambda: expand_kernel.expand_rows_plain(cols, counts, capacity), 3),
@@ -883,17 +971,25 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
     log(f"check {name} capped: blend_flat (on the frame data) == plain bit for bit, image and "
         f"T, valid/caps/thr/floor from "
         f"either T equal; kernel {res['blend_flat']['ms']:.3f} ms vs plain "
-        f"{res['blend_flat']['plain_ms']:.3f} ms; compact_runs bit-exact on {int(live.sum())} "
-        f"live lanes of {ep5}, {res['compact_runs']['ms']:.3f} ms vs plain "
-        f"{res['compact_runs']['plain_ms']:.3f}; compact_segments bit-exact, "
-        f"{res['compact_segments']['ms']:.3f} ms vs plain {res['compact_segments']['plain_ms']:.3f}"
-        + f"; K3 bound {res['blend_flat']['bound_ms']:.4f} ms with P_batch "
-        f"({res['blend_flat']['bound_by']}), {per_pixel['bound_ms']:.4f} with P ({work}); K5 bound "
-        f"{res['compact_runs']['bound_ms']:.4f}, K6 bound {res['compact_segments']['bound_ms']:.4f}"
+        f"{res['blend_flat']['plain_ms']:.3f} ms; K3 bound {res['blend_flat']['bound_ms']:.4f} ms "
+        f"with P_batch ({res['blend_flat']['bound_by']}), {per_pixel['bound_ms']:.4f} with P "
+        f"({work}); compact_slabs == plain == the parent's layout code == the layout's gid on "
+        f"all {k5['ep']} lanes ({k5['live']} live), {k5['ms']:.4f} ms vs plain "
+        f"{k5['plain_ms']:.3f}, kernels {k5['device_ms']}, the parent's id passes "
+        f"{k5['parent_ms']:.4f}, bound "
+        f"{k5['bound_ms']:.4f} ({k5['bound_bytes']} B); on the patch pass ({patch_tiles} tiles "
+        f"marked invalid) == plain == the parent's code on all {k5_patch['ep']} lanes "
+        f"({k5_patch['live']} live), {k5_patch['ms']:.4f} ms, kernels {k5_patch['device_ms']}, "
+        f"bound {k5_patch['bound_ms']:.4f}; "
+        f"compact_runs (unmasked, off the path) == plain on all {ep5} lanes, "
+        f"{res['compact_runs']['ms']:.3f} ms vs plain {res['compact_runs']['plain_ms']:.3f}, "
+        f"bound {res['compact_runs']['bound_ms']:.4f}; compact_segments bit-exact, "
+        f"{res['compact_segments']['ms']:.3f} ms vs plain {res['compact_segments']['plain_ms']:.3f}, "
+        f"bound {res['compact_segments']['bound_ms']:.4f}"
         + "".join(f"; {k} bit-exact, {res[k]['ms']:.3f} ms vs plain {res[k]['plain_ms']:.3f}, "
                   f"repeat_interleave {res[k]['library_ms']:.3f}, bound {res[k]['bound_ms']:.4f} "
                   f"({res[k]['bound_by']})"
-                  for k in ("chunk_map", "expand_rows_streamed") if k in res)
+                  for k in ("expand_rows_streamed",) if k in res)
         + f"; capped vs uncapped K2 frame 8-bit (max, share>1) per channel {vs_k2}")
     return res
 
@@ -1073,9 +1169,110 @@ def run_dist(mult: float) -> dict:
     return out
 
 
-# Kernels that no path of the port runs (the JAX package has no production
-# caller either): held to their plain versions in the check phase only.
-OFF_PATH = ("compact_segments",)
+APP_SCENE = "garden30k_1080p"
+APP_FRAMES = 3
+FIXTURE = "tests/fixtures/gs_export_384.ply"
+FIXTURE_GOLDEN = "tests/golden/ply_fixture.png"
+
+
+class _LogLines(logging.Handler):
+    """Keeps the messages of the port's logger (utils/log.py)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def phase_app(mult: float) -> dict:
+    """The app path at garden's size: the calibrated stand-in written with
+    write_gaussian_ply (~1.38 GB, in a temporary directory deleted after),
+    loaded by load_gaussians through the native parser and held bit for bit
+    to the numpy parser's table, then the CLI on the card (`--ply`, 1920x1080,
+    APP_FRAMES frames, `--out`), whose PNG must equal Renderer.draw on the
+    same table and camera bit for bit; last the .ply fixture rendered as
+    tests/test_ply_fixture.py does, within ±1 8-bit of its golden PNG.
+    Returns the CLI run's kernel launches."""
+    table, _config, _cam, _target, _frames = make_scene(APP_SCENE)
+    table = scaled(table, mult)
+    n, width, height = SCENES[APP_SCENE][:3]
+    lines = _LogLines()
+    logging.getLogger("vk3dgs_tpu_torch").addHandler(lines)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path, png = os.path.join(tmp, "garden.ply"), os.path.join(tmp, "frame.png")
+            t0 = time.perf_counter()
+            ply.write_gaussian_ply(path, table)
+            write_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            del table
+            t0 = time.perf_counter()
+            loaded = ply.load_gaussians(path)
+            ply_load_s = time.perf_counter() - t0
+            report = [ln for ln in lines.lines if ln.startswith("load_gaussians")][-1]
+            if "native parser" not in report or loaded.num_gaussians != n:
+                raise RuntimeError(f"app: load_gaussians did not take the native parser: {report}")
+            t0 = time.perf_counter()
+            ref = from_raw_ply_columns(**ply.gaussian_columns_from_ply(path))
+            numpy_s = time.perf_counter() - t0
+            for f in dataclasses.fields(GaussianTable):
+                if not torch.equal(getattr(loaded, f.name), getattr(ref, f.name)):
+                    raise RuntimeError(f"app: native and numpy parsers differ in {f.name}")
+            del ref
+
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["--ply", path, "--width", str(width), "--height", str(height),
+                           "--frames", str(APP_FRAMES), "--out", png])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = read_counts()
+            if rc != 0 or launches["expand_rows"] != APP_FRAMES or launches["blend_tiles"] != APP_FRAMES:
+                raise RuntimeError(f"app: the CLI returned {rc}, launches {launches}")
+            got = image_io.read_png(png)
+    finally:
+        logging.getLogger("vk3dgs_tpu_torch").removeHandler(lines)
+    config = RenderConfig(width=width, height=height)  # the CLI's
+    renderer = Renderer(config, device="cuda")
+    renderer.init_for_scene(loaded)
+    cam = Camera(config.aspect)
+    cam.set_position((0.0, 0.0, 2.0))  # the CLI's .ply scene camera
+    cam.set_rotation(math.pi, 0.0)
+    out = renderer.draw(cam)
+    want = out.image_u8.cpu().numpy()
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise RuntimeError(f"app: the CLI's PNG {got.shape} differs from Renderer.draw {want.shape}")
+    check_image(out.image, config, "app CLI frame")
+    del renderer, loaded, out
+    torch.cuda.empty_cache()
+
+    fixture_config = RenderConfig(width=192, height=96, capacity_slack_per_tile=32)
+    renderer = Renderer(fixture_config, device="cuda")
+    renderer.init_for_scene(ply.load_gaussians(FIXTURE))
+    cam = Camera(fixture_config.aspect)
+    cam.set_position((0.0, 0.0, 2.5))
+    cam.set_rotation(math.pi, 0.0)
+    fixture = renderer.draw_numpy(cam).astype(np.int32)
+    golden = image_io.read_png(FIXTURE_GOLDEN).astype(np.int32)
+    d = int(np.abs(fixture - golden).max()) if fixture.shape == golden.shape else None
+    if d is None or d > 1:
+        raise RuntimeError(f"app: the .ply fixture vs its golden PNG, 8-bit max |Δ| {d}")
+    log(f"app {APP_SCENE}: write_gaussian_ply {n} gaussians, {size} B in {write_s:.2f} s; "
+        f"ply_load_s {ply_load_s:.3f} (native parser, {report!r}); numpy parser "
+        f"{numpy_s:.2f} s, tables equal bit for bit; CLI --ply {width}x{height} "
+        f"{APP_FRAMES} frames in {cli_s:.2f} s with the load, launches {launches}; its PNG == "
+        f"Renderer.draw bit for bit; fixture .ply vs golden 8-bit max |Δ| {d}")
+    return {k: v / APP_FRAMES for k, v in launches.items()}, launches
+
+
+# Kernels that no path of the port runs, held to their plain versions in the
+# check phase only: K6 (the JAX package has no production caller either),
+# and K5's unmasked TPU function, which `compact_slabs` replaced on the
+# capped path and which is reported on the capped check's line, not in the
+# kernels line.
+OFF_PATH = ("compact_segments", "compact_runs")
 
 META = {
     "expand_rows": ("vk3dgaussiansplatting_tpu_torch/csrc/expand.cu",
@@ -1086,8 +1283,8 @@ META = {
                     "vk3dgaussiansplatting_tpu/ops/pallas/blend_kernel.py:760"),
     "blend_flat": ("vk3dgaussiansplatting_tpu_torch/csrc/blend_flat.cu",
                    "vk3dgaussiansplatting_tpu/ops/pallas/blend_kernel.py:647"),
-    "compact_runs": ("vk3dgaussiansplatting_tpu_torch/csrc/compact.cu",
-                     "vk3dgaussiansplatting_tpu/ops/pallas/compact_kernel.py:120"),
+    "compact_slabs": ("vk3dgaussiansplatting_tpu_torch/csrc/compact.cu",
+                      "vk3dgaussiansplatting_tpu/ops/pallas/compact_kernel.py:120"),
     "compact_segments": ("vk3dgaussiansplatting_tpu_torch/csrc/compact.cu",
                          "vk3dgaussiansplatting_tpu/ops/pallas/compact_kernel.py:212"),
     "blend_strip": ("vk3dgaussiansplatting_tpu_torch/csrc/blend_strip.cu",
@@ -1118,13 +1315,16 @@ def main() -> None:
     for name in SCENES:
         renderer, cam, cap, out, path_launches, capped_frame = run_capped(name, mults[name])
         per_frame["capped_steady" if renderer._plan is not None else "capped_temporal"] = capped_frame
-        for k in ("expand_rows", "expand_rows_streamed", "blend_flat", "compact_runs"):
+        for k in ("expand_rows", "expand_rows_streamed", "blend_flat", "compact_slabs"):
             launches[k] += path_launches[k]
         results[name].update(check_capped(renderer, cam, cap, out, name))
         if renderer._plan is not None:
             probe_motion(renderer, cam, name)
         del renderer, cap, out
         torch.cuda.empty_cache()
+    per_frame["app_cli"], app_launches = phase_app(mults[APP_SCENE])
+    for k, v in app_launches.items():
+        launches[k] += v
     dist_runs = run_dist(mults[DIST_SCENE])
     for run in dist_runs.values():
         for k, v in run["launches"].items():
@@ -1136,8 +1336,8 @@ def main() -> None:
         **first_run["blend_strip"],
         "max_abs_err": max(r["blend_strip"]["max_abs_err"] for r in dist_runs.values()),
     }}
-    log(f"launches: {launches} over the uncapped and capped paths of {len(SCENES)} scenes and "
-        f"the distributed path's ranks; per frame by path {per_frame}")
+    log(f"launches: {launches} over the uncapped and capped paths of {len(SCENES)} scenes, "
+        f"the CLI's frames and the distributed path's ranks; per frame by path {per_frame}")
     on_path = {k: v for k, v in launches.items() if k not in OFF_PATH}
     if min(on_path.values()) == 0:
         raise RuntimeError(f"a kernel of the paths was never launched: {launches}")

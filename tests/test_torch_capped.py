@@ -193,9 +193,9 @@ def test_capped_layout_matches_jax(kind):
         tcaps = convert.caps_state_from_jax(jcaps)
     want = _jit_layout(jel, jrg, jfr, config, jcaps)
     _ta, _tb, jgid, jlive, jpstart, jcounts, jr, jfits, jpend = (np.asarray(a) for a in want)
-    launches = (expand_kernel.LAUNCHES, compact_kernel.RUNS_LAUNCHES)
+    launches = (expand_kernel.LAUNCHES, compact_kernel.SLABS_LAUNCHES)
     lay = tcap.capped_layout(te, tr, tf, convert.config_from_jax(config), tcaps)
-    assert (expand_kernel.LAUNCHES, compact_kernel.RUNS_LAUNCHES) == launches  # CPU: plain
+    assert (expand_kernel.LAUNCHES, compact_kernel.SLABS_LAUNCHES) == launches  # CPU: plain
     live = lay.gid.numpy() != 0xFFFFFFFF
     np.testing.assert_array_equal(live, jlive > 0)
     np.testing.assert_array_equal(lay.gid.numpy()[live], jgid[live].astype(np.int64))

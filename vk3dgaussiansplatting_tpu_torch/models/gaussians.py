@@ -70,6 +70,14 @@ class GaussianTable:
             for f in dataclasses.fields(self)
         }
 
+    def take(self, indices) -> "GaussianTable":
+        """The rows `indices` (an int array or tensor), in that order."""
+        idx = torch.as_tensor(indices, device=self.device)
+        return GaussianTable(*(getattr(self, f.name)[idx] for f in dataclasses.fields(self)))
+
+    def concat(self, other: "GaussianTable") -> "GaussianTable":
+        return concat_tables([self, other])
+
 
 def concat_tables(tables: list[GaussianTable]) -> GaussianTable:
     return GaussianTable(
@@ -130,3 +138,42 @@ def from_raw_ply_columns(
             a[perm] for a in (position, scale, rot, sh, opacity)
         )
     return GaussianTable.from_numpy(position, scale, rot, sh, opacity)
+
+
+def raw_ply_columns_from_table(table: GaussianTable) -> dict:
+    """Invert the load-time transforms of `from_raw_ply_columns`: the raw
+    .ply property columns whose load reproduces `table` (up to float32
+    exp/log and sigmoid/logit round trips), in numpy float32 exactly as the
+    JAX package computes them.  `io.ply.write_gaussian_ply` exports tables
+    with it, so procedural scenes can be loaded as captures."""
+    t = table.to_numpy()
+    pos = t["position"]
+    xyz = np.stack([-pos[:, 0], -pos[:, 1], pos[:, 2]], axis=1)
+    scales = np.log(np.maximum(t["scale"], 1e-30))
+    r = t["rot"]
+    # loaded (p, q, r, s) = (-c, -d, a, -b) of raw (a, b, c, d), so raw =
+    # (r, -s, -p, -q)
+    rots = np.stack([r[:, 2], -r[:, 3], -r[:, 0], -r[:, 1]], axis=1)
+    o = np.clip(t["opacity"], 1e-6, 1.0 - 1e-6)
+    opacities = np.log(o / (1.0 - o)).astype(np.float32)
+    sh = t["sh"]
+    num_rest = NUM_SH_COEFFS - 1
+    f_rest = np.zeros((sh.shape[0], 3 * num_rest), np.float32)
+    for ch in range(3):
+        f_rest[:, num_rest * ch : num_rest * (ch + 1)] = sh[:, 1 : 1 + num_rest, ch]
+    return dict(xyz=xyz, scales=scales, rots=rots, opacities=opacities, f_dc=sh[:, 0, :],
+                f_rest=f_rest)
+
+
+def make_gaussian(
+    position,
+    scale=(1.0, 1.0, 1.0),
+    rot=(1.0, 0.0, 0.0, 0.0),
+    color_sh0=(0.0, 0.0, 0.0),
+    opacity=1.0,
+) -> GaussianTable:
+    """One already-activated gaussian (ResourceManager::addGaussian,
+    ResourceManager.h:47: no load-time transforms), as a CPU table."""
+    sh = np.zeros((1, NUM_SH_COEFFS, 3), dtype=np.float32)
+    sh[0, 0] = np.asarray(color_sh0, dtype=np.float32)
+    return GaussianTable.from_numpy([position], [scale], [rot], sh, [opacity])

@@ -16,9 +16,10 @@ package's frame by frame.
 
 What differs from the JAX module, and why:
 
-  * Kernels.  The layout's chunk->tile map is K1 (`expand_rows`), the id
-    copy K5 (`compact_runs`), the blend K3 (`blend_flat`); their wrappers
-    run the plain versions on CPU tensors.  K3 reads each packed
+  * Kernels.  The layout's ids come from K5 (`compact_slabs`: each tile
+    writes its own slab, ids on its live lanes and SENTINEL elsewhere, so
+    no chunk map and no mask pass follow it), the blend is K3
+    (`blend_flat`); their wrappers run the plain versions on CPU tensors.  K3 reads each packed
     element's float32 row of the frame data (screen_pos, cov_inv,
     color_alpha) by gaussian id itself, so no feature table is built: the
     JAX path's two width-4 tables, its float16 rgb and the [16, ep] feature
@@ -55,7 +56,7 @@ import torch
 
 from ..core.config import SENTINEL, RenderConfig
 from ..utils.timing import section
-from .cuda import blend_kernel, compact_kernel, expand_kernel
+from .cuda import blend_kernel, compact_kernel
 from .keygen import GaussianFrameData, SortElements
 from .search import two_level_lex_search
 
@@ -181,14 +182,7 @@ def _count_unfixable(valid, thr):
     return (~valid & (thr != SENTINEL)).sum()
 
 
-def _live_lanes(lo, hi):
-    """[C] per-chunk live lane window [lo, hi) -> [C*128] bool."""
-    lane = torch.arange(SEG_ALIGN, device=lo.device)
-    return ((lane >= lo[:, None]) & (lane < hi[:, None])).reshape(-1)
-
-
 def _layout(elements, ranges, config, caps, thr, ep):
-    wmax = _round_up(config.blend_cap_max, SEG_ALIGN) + SEG_ALIGN
     starts = ranges[:, 0]
     # FindRanges' quirk at a full list can leave end < start (ops/ranges.py);
     # JAX carries the negative length into the slab sums, the port treats
@@ -203,28 +197,12 @@ def _layout(elements, ranges, config, caps, thr, ep):
     slabw = torch.div(off + counts + SEG_ALIGN - 1, SEG_ALIGN, rounding_mode="floor") * SEG_ALIGN
     pcum = torch.cumsum(slabw, 0)
     sbase = pcum - slabw
-    fits = pcum[-1] <= ep
-
-    # Packed chunk (128 lanes) -> its tile's live lane window, by K1 over
-    # the tile table.
-    nchunks = ep // SEG_ALIGN
-    cols, _ = expand_kernel.expand_rows(
-        torch.stack([sbase // SEG_ALIGN, counts, off]).to(torch.int32),
-        slabw // SEG_ALIGN,
-        nchunks,
-    )
-    cols = cols.to(torch.int64)
-    chunk_local = (torch.arange(nchunks, device=cols.device) - cols[0]) * SEG_ALIGN
-    seg_live = _live_lanes(cols[2] - chunk_local, cols[2] + cols[1] - chunk_local)
-
-    gid_raw = compact_kernel.compact_runs(elements.index, starts, sbase, ep, wmax)
-    live = seg_live & (gid_raw != SENTINEL)
     return CappedLayout(
-        gid=torch.where(live, gid_raw, SENTINEL),
+        gid=compact_kernel.compact_slabs(elements.index, starts, sbase, slabw, off, counts, ep),
         pstart=sbase + off,
         counts=counts,
         r=r,
-        fits=fits,
+        fits=pcum[-1] <= ep,
         pcum_end=pcum[-1],
         filtered=filtered,
     )
@@ -239,7 +217,7 @@ def _split_caps(caps, config: RenderConfig):
 
 
 def capped_layout(elements, ranges, frame, config: RenderConfig, caps):
-    """Phase 1: the packed layout and id compaction of a frame (K1, K5).
+    """Phase 1: the packed layout and id compaction of a frame (K5).
 
     caps: [T] int64 caps or a CapsState (enables threshold trimming).
     `frame` (JAX's signature) is not read: K3 reads the frame data itself
@@ -335,15 +313,7 @@ def _patch_pass(img, valid, elements, ranges, frame, config: RenderConfig):
     pcum = torch.cumsum(slabw, 0)
     sbase = pcum - slabw
 
-    gid_raw = compact_kernel.compact_runs(
-        elements.index, starts_p, sbase, ep_patch, PATCH_WMAX
-    )
-    chunk = torch.arange(ep_patch // SEG_ALIGN, device=device)
-    slab_of = torch.clamp(torch.searchsorted(pcum // SEG_ALIGN, chunk, right=True), max=k - 1)
-    chunk_local = (chunk - (sbase // SEG_ALIGN)[slab_of]) * SEG_ALIGN
-    lo = off[slab_of] - chunk_local
-    live = _live_lanes(lo, lo + r_p[slab_of]) & (gid_raw != SENTINEL)
-    gid = torch.where(live, gid_raw, SENTINEL)
+    gid = compact_kernel.compact_slabs(elements.index, starts_p, sbase, slabw, off, r_p, ep_patch)
 
     # Tile -> patch slab (JAX: a [T, PATCH_TILES] one-hot matmul).
     slot = torch.where(is_real, tvals, t)

@@ -64,6 +64,11 @@ SIGNATURES = {
         [_P, _P, _I64, _I32, _P, _I32, _I32, _I32, _F32, _F32, _P, _P, _P, _P, _I32, _P],
         ctypes.c_int,
     ),
+    # src, e, starts, starts_stride, sbases, slabw, offs, counts, nt, ep, out,
+    # device, stream
+    "vk3d_compact_slabs": (
+        [_P, _I64, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], ctypes.c_int,
+    ),
     # src, e, astarts, sbases, nt, ep, wmax, out, device, stream
     "vk3d_compact_runs": ([_P, _I64, _P, _P, _I64, _I64, _I64, _P, _I32, _P], ctypes.c_int),
     # src, e, src0, ep, out, device, stream

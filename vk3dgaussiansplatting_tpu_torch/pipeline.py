@@ -8,7 +8,7 @@ tensor code on one device,
         ->  blend  ->  quantize
 
 where the blend is K2 (uncapped, `blend_depth_cap == 0`) or the capped blend
-of ops/capped.py (K1 chunk map, K5 compaction, K3 blend with its
+of ops/capped.py (K5 layout ids, K3 blend with its
 transmittance read-back): the static cap in `render_frame`, the temporal
 per-tile caps in `render_frame_temporal`, and, for scenes above
 `Renderer.BIG_SCENE_CAPACITY`, `ChainedTemporalPlan` with the depth

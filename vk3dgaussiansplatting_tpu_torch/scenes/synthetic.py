@@ -1,5 +1,5 @@
 """Synthetic scenes — the reference's procedural fixtures and the benchmark
-stand-in cloud.
+stand-in clouds.
 
 Port of `vk3dgaussiansplatting_tpu.scenes.synthetic`.  Every generator draws
 the same numpy random stream, in the same order, as the JAX package's, so a
@@ -118,6 +118,64 @@ def procedural_cloud_table(
     )
 
 
+def procedural_surface_table(
+    num_gaussians: int,
+    *,
+    seed: int = 42,
+    extent: float = 6.0,
+    num_surfaces: int = 400,
+    scale_log_mean: float = -5.0,
+    scale_log_std: float = 0.6,
+    flatten: float = 0.12,
+    sh_rest_std: float = 0.05,
+) -> GaussianTable:
+    """Surface-structured benchmark cloud: gaussians on random ellipsoidal
+    surface patches (small normal jitter), each one's shortest axis along
+    the surface normal, ~90% opaque surface (sigmoid(N(3.5, 1))) and ~10%
+    haze (sigmoid(N(-1, 1))), rows in a seeded random order — the shape of
+    a trained capture, which a uniform cloud does not have."""
+    rng = np.random.default_rng(seed)
+    n = num_gaussians
+
+    surf = rng.integers(0, num_surfaces, size=n)
+    centers = rng.uniform(-extent, extent, size=(num_surfaces, 3))
+    radii = np.exp(rng.normal(-0.3, 0.7, size=(num_surfaces, 3))) * (extent * 0.25)
+    # points on the unit sphere -> per-surface ellipsoid
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    jitter = 1.0 + rng.normal(0.0, 0.01, size=(n, 1))
+    position = (centers[surf] + u * radii[surf] * jitter).astype(np.float32)
+
+    # Shortest axis along the surface normal (u / radii^2, normalized): the
+    # quaternion rotating +z to the normal, or a half turn about x where the
+    # normal is ~ -z.
+    normal = u / np.maximum(radii[surf] ** 2, 1e-6)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    z = np.array([0.0, 0.0, 1.0])
+    axis = np.cross(np.broadcast_to(z, normal.shape), normal)
+    w = 1.0 + normal[:, 2:3]
+    q = np.concatenate([w, axis], axis=1)
+    qn = np.linalg.norm(q, axis=1, keepdims=True)
+    q = np.where(qn > 1e-6, q / np.maximum(qn, 1e-12), np.array([[0.0, 1.0, 0.0, 0.0]]))
+    rot = q.astype(np.float32)
+
+    scale = np.exp(rng.normal(scale_log_mean, scale_log_std, size=(n, 3))).astype(np.float32)
+    scale[:, 2] *= np.float32(flatten)  # tangential disks
+
+    haze = rng.random(n) < 0.1
+    logits = np.where(haze, rng.normal(-1.0, 1.0, size=n), rng.normal(3.5, 1.0, size=n))
+    opacity = (1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+
+    sh = np.zeros((n, NUM_SH_COEFFS, 3), dtype=np.float32)
+    sh[:, 0, :] = rng.uniform(-0.5, 1.5, size=(n, 3))
+    sh[:, 1:, :] = rng.normal(0.0, sh_rest_std, size=(n, NUM_SH_COEFFS - 1, 3))
+
+    perm = rng.permutation(n)
+    return GaussianTable.from_numpy(
+        position[perm], scale[perm], rot[perm], sh[perm], opacity[perm]
+    )
+
+
 class SimpleTestGaussiansScene(Scene):
     """SimpleTestGaussiansScene.cpp: camera at (0,0,2) yaw=pi."""
 
@@ -134,3 +192,18 @@ class TestSortScene(Scene):
         self.camera.set_position((0.0, 0.0, 0.0))
         self.camera.set_rotation(0.0, 0.0)
         self.add_gaussians(test_sort_table())
+
+
+class ProceduralBenchScene(Scene):
+    """Benchmark stand-in for the Garden/Train .ply scenes: a
+    `procedural_cloud_table` of `num_gaussians`, camera at (0,0,2) yaw=pi."""
+
+    def __init__(self, num_gaussians: int, aspect: float = 16.0 / 9.0, seed: int = 42):
+        super().__init__(aspect)
+        self.num_gaussians = num_gaussians
+        self.seed = seed
+
+    def init(self) -> None:
+        self.camera.set_position((0.0, 0.0, 2.0))
+        self.camera.set_rotation(math.pi, 0.0)
+        self.add_gaussians(procedural_cloud_table(self.num_gaussians, seed=self.seed))
