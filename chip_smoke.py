@@ -28,6 +28,18 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
   scene    garden30k_1080p: 5,834,784 gaussians at 1920x1080, capacity
            14,190,624, calibrated to 13,098,506 live ±3%; 3 warm-up + 10
            timed frames; the same checks of K1 and K2
+  bitonic  each scene through Renderer with sort_algorithm=BITONIC at its
+           default power-of-two capacity (train7k 8,388,608 slots, garden
+           16,777,216) and calibrated scale: 3 warm-up + 10 timed frames,
+           then the same camera path through an AUTO renderer of the same
+           capacity; ms/frame and the sort section of both; on the last
+           frame's own keygen output the kernel == sort_elements_xla == the
+           plain version on the card, bit for bit on tile, depth and index,
+           its input unchanged, the planned number of kernels a sort
+           (bitonic_kernel.planned_passes); the frame's image_u8 == the AUTO
+           frame's bit for bit; the kernel's, plain, torch.sort times, the
+           bound (48 B a slot) and the network's floor (its passes x 24 B a
+           slot)
   capped   each scene again through Renderer with blend_depth_cap=384,
            blend_cap_max=4096 (the temporal capped blend), same scales:
            train7k_720p on the monolithic temporal frame (3 warm-up + 20
@@ -57,7 +69,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            parser's; the CLI on the card (--ply, 1920x1080, 3 frames, --out:
            K1 and K2 once a frame), its PNG read back with the port's
            read_png bit for bit with Renderer.draw on the same table and
-           camera; the .ply fixture rendered as tests/test_ply_fixture.py
+           camera; the CLI again with --sort bitonic, its PNG bit for bit
+           with the first (the bitonic kernel once a frame); the .ply fixture rendered as tests/test_ply_fixture.py
            does, within ±1 8-bit of tests/golden/ply_fixture.png
   motion   garden's chained plan for 10 more frames at camera step 1e-3,
            recorded (mode, live, ok, unfixable tiles), not checked
@@ -116,15 +129,16 @@ import torch
 import torch.distributed as tdist
 
 from vk3dgaussiansplatting_tpu_torch.app import cli
-from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL, RenderConfig
+from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL, RenderConfig, SortAlgorithm
 from vk3dgaussiansplatting_tpu_torch.io import image as image_io
 from vk3dgaussiansplatting_tpu_torch.io import ply
 from vk3dgaussiansplatting_tpu_torch.models.gaussians import GaussianTable, from_raw_ply_columns
+from vk3dgaussiansplatting_tpu_torch.ops import bitonic as bitonic_ops
 from vk3dgaussiansplatting_tpu_torch.ops import blend as blend_ops
 from vk3dgaussiansplatting_tpu_torch.ops import capped as capped_ops
 from vk3dgaussiansplatting_tpu_torch.ops import keygen, ranges, sort
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import (
-    _build, blend_kernel, compact_kernel, expand_kernel,
+    _build, bitonic_kernel, blend_kernel, compact_kernel, expand_kernel,
 )
 from vk3dgaussiansplatting_tpu_torch.parallel import dist, mesh, multihost
 from vk3dgaussiansplatting_tpu_torch.pipeline import Renderer, render_frame
@@ -145,6 +159,7 @@ K2_MAX_FRAC_GT1 = 1e-4
 # The capped phases: the JAX benchmark's capped settings (bench.py:171-184).
 CAP, CAP_MAX, STEADY_FRAC = 384, 4096, 0.51
 SYNC_FRAMES = 2  # frames run under torch's sync debug mode, before timing
+BITONIC_FRAMES = 10  # timed frames a scene of the bitonic phase
 # Camera step per capped frame (x, world units).  garden's prefilter steady
 # set is driven at the JAX benchmark's step (bench.py:705-787, i * 1e-5):
 # at 1e-3 (~0.5 px a frame) tens of prefiltered tiles a frame fail
@@ -192,6 +207,7 @@ COUNTERS = {
     "compact_runs": (compact_kernel, "RUNS_LAUNCHES"),
     "compact_segments": (compact_kernel, "SEGMENTS_LAUNCHES"),
     "blend_strip": (blend_kernel, "STRIP_LAUNCHES"),
+    "bitonic_sort": (bitonic_kernel, "LAUNCHES"),
 }
 
 
@@ -297,6 +313,7 @@ class Capture:
         (blend_kernel, "blend_strip"),
         (compact_kernel, "compact_slabs"),
         (capped_ops, "capped_finish"),
+        (bitonic_ops, "sort_elements_bitonic"),
     )
 
     def __init__(self):
@@ -681,6 +698,106 @@ def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
         f"{k2['plain_ms']:.3f} ms, blend section {passes['blend']:.3f} ms, bound "
         f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}, {k2['bound_bytes']} B; {work})")
     return {"expand_rows": k1, "blend_tiles": k2}
+
+
+def timed_draws(renderer: Renderer, cam: Camera, base, frames: int, cap=None):
+    """WARMUP_FRAMES + `frames` draws, the camera stepped 1e-3 in x a frame
+    from `base`: (last FrameOutputs, ms of each timed frame, per-pass ms)."""
+    timer = CudaPassTimer()
+    events = []
+    for i in range(WARMUP_FRAMES + frames):
+        if cap is not None:
+            cap.new_frame()
+        cam.set_position(base + np.float32([1e-3 * i, 0.0, 0.0]))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = renderer.draw(cam, timer=timer if i >= WARMUP_FRAMES else None)
+        end.record()
+        if i >= WARMUP_FRAMES:
+            events.append((start, end))
+    torch.cuda.synchronize()
+    return out, [s.elapsed_time(e) for s, e in events], timer.summary()
+
+
+def run_bitonic(name: str, mult: float):
+    """The bitonic tier through Renderer at the scene's default power-of-two
+    capacity, then an AUTO renderer of the same capacity on the same camera
+    path; the kernel against sort_elements_xla and its plain version on the
+    last frame's own keygen output, the two frames' images bit for bit.
+    Returns (the kernel's results, the path's launches, its launches a
+    frame)."""
+    table, _config, cam, _target, _frames = make_scene(name)
+    width, height = SCENES[name][1:3]
+    config = RenderConfig(width=width, height=height, sort_algorithm=SortAlgorithm.BITONIC)
+    renderer = Renderer(config, device="cuda")
+    renderer.init_for_scene(scaled(table, mult))
+    del table
+    e = renderer.capacity
+    planned = bitonic_kernel.planned_passes(e)
+    base = cam.position.copy()
+    reset_counts()
+    bitonic_kernel.PASSES = 0
+    with Capture() as cap:
+        out, frame_ms, passes = timed_draws(renderer, cam, base, BITONIC_FRAMES, cap)
+    drawn = WARMUP_FRAMES + BITONIC_FRAMES
+    launches = read_counts()
+    kernels = bitonic_kernel.PASSES
+    path = {k: launches[k] for k in ("expand_rows", "bitonic_sort", "blend_tiles")}
+    if any(v != drawn for v in path.values()) or kernels != drawn * planned:
+        raise RuntimeError(f"{name} bitonic: {drawn} frames launched {path}, {kernels} kernels "
+                           f"({planned} a sort planned)")
+    check_image(out.image, config, f"{name} bitonic")
+
+    # The last frame's own keygen output: the kernel against the stable
+    # tier and the plain version, bit for bit; its input unchanged.
+    (el,), _ = cap.args["sort_elements_bitonic"]
+    before = [x.clone() for x in el[:3]]
+    got = bitonic_ops.sort_elements_bitonic(el)
+    refs = {"sort_elements_xla": sort.sort_elements_xla(el, config.num_tiles),
+            "plain version": bitonic_ops.sort_elements_bitonic_plain(el)}
+    for ref_name, ref in refs.items():
+        for col in ("tile", "depth", "index"):
+            a, b = getattr(got, col), getattr(ref, col)
+            if not torch.equal(a, b):
+                raise RuntimeError(f"{name}: bitonic_sort differs from the {ref_name} in {col} "
+                                   f"at {int((a != b).sum())} of {e} slots")
+    if not all(torch.equal(a, b) for a, b in zip(before, el[:3])):
+        raise RuntimeError(f"{name}: bitonic_sort wrote its input")
+    del before
+
+    auto = Renderer(dataclasses.replace(config, sort_algorithm=SortAlgorithm.AUTO), device="cuda")
+    auto.init_for_scene(renderer.table)
+    auto_out, auto_ms, auto_passes = timed_draws(auto, cam, base, BITONIC_FRAMES)
+    if auto.capacity != e or not torch.equal(auto_out.image_u8, out.image_u8):
+        raise RuntimeError(f"{name}: the bitonic frame differs from the AUTO frame at capacity {e}")
+    res = {
+        "max_abs_err": max(int((getattr(got, c) - getattr(refs["plain version"], c)).abs().max())
+                           for c in ("tile", "depth", "index")),
+        "ms": cuda_ms(lambda: bitonic_ops.sort_elements_bitonic(el), 10),
+        "plain_ms": cuda_ms(lambda: bitonic_ops.sort_elements_bitonic_plain(el), 1),
+        "library_ms": cuda_ms(lambda: sort.sort_elements_xla(el, config.num_tiles), 10),
+        "device_ms": device_breakdown(lambda: bitonic_ops.sort_elements_bitonic(el), 3),
+        "kernels_per_sort": planned,
+        # The network's own floor: every kernel reads and writes 12 B a slot.
+        "network_floor_ms": planned * 24 * e / PEAK_BYTES_PER_S * 1e3,
+        **bound(48 * e, 0),
+    }
+    log(f"bitonic {name}: capacity {e}, last frame {int(out.num_elements)} live; ms/frame median "
+        f"{statistics.median(frame_ms):.3f} (min {min(frame_ms):.3f}, max {max(frame_ms):.3f}, "
+        f"{BITONIC_FRAMES} frames); per pass ms "
+        + ", ".join(f"{k} {passes[k]:.3f}" for k in ("keygen", "expand", "sort", "ranges", "blend"))
+        + f"; launches {path}, {kernels} kernels ({planned} a sort, block "
+        f"{bitonic_kernel.BLOCK}); the AUTO renderer at the same capacity: ms/frame median "
+        f"{statistics.median(auto_ms):.3f} (min {min(auto_ms):.3f}, max {max(auto_ms):.3f}), sort "
+        f"{auto_passes['sort']:.3f}")
+    log(f"check {name} bitonic: bitonic_sort == sort_elements_xla == the plain version on the "
+        f"card, bit for bit on tile, depth and index ({e} slots), its input unchanged; image_u8 "
+        f"== the AUTO frame's bit for bit; kernel {res['ms']:.3f} ms vs plain "
+        f"{res['plain_ms']:.3f} ms, torch.sort (sort_elements_xla) {res['library_ms']:.3f} ms; "
+        f"bound {res['bound_ms']:.4f} ms (48 B a slot, {res['bound_by']}), the network's floor "
+        f"{res['network_floor_ms']:.3f} ms ({planned} kernels x 24 B a slot); kernels "
+        f"{res['device_ms']}")
+    return res, launches, {k: v / drawn for k, v in launches.items()}
 
 
 def count_syncs(fn):
@@ -1193,8 +1310,10 @@ def phase_app(mult: float) -> dict:
     to the numpy parser's table, then the CLI on the card (`--ply`, 1920x1080,
     APP_FRAMES frames, `--out`), whose PNG must equal Renderer.draw on the
     same table and camera bit for bit; last the .ply fixture rendered as
-    tests/test_ply_fixture.py does, within ±1 8-bit of its golden PNG.
-    Returns the CLI run's kernel launches."""
+    tests/test_ply_fixture.py does, within ±1 8-bit of its golden PNG.  The
+    CLI runs twice, the second time with `--sort bitonic`, whose PNG must
+    equal the first.  Returns each CLI run's launches a frame, and both
+    runs' launches."""
     table, _config, _cam, _target, _frames = make_scene(APP_SCENE)
     table = scaled(table, mult)
     n, width, height = SCENES[APP_SCENE][:3]
@@ -1232,6 +1351,26 @@ def phase_app(mult: float) -> dict:
             if rc != 0 or launches["expand_rows"] != APP_FRAMES or launches["blend_tiles"] != APP_FRAMES:
                 raise RuntimeError(f"app: the CLI returned {rc}, launches {launches}")
             got = image_io.read_png(png)
+
+            # The CLI again with the bitonic tier: the same PNG.
+            reset_counts()
+            bitonic_kernel.PASSES = 0
+            t0 = time.perf_counter()
+            rc = cli.main(["--ply", path, "--width", str(width), "--height", str(height),
+                           "--frames", str(APP_FRAMES), "--sort", "bitonic", "--out", png])
+            torch.cuda.synchronize()
+            bitonic_s = time.perf_counter() - t0
+            bitonic_launches = read_counts()
+            planned = bitonic_kernel.planned_passes(RenderConfig(width=width, height=height)
+                                                    .sort_capacity(n))
+            if rc != 0 or any(bitonic_launches[k] != APP_FRAMES for k in
+                              ("expand_rows", "bitonic_sort", "blend_tiles")) or (
+                    bitonic_kernel.PASSES != APP_FRAMES * planned):
+                raise RuntimeError(f"app: the bitonic CLI returned {rc}, launches "
+                                   f"{bitonic_launches}, {bitonic_kernel.PASSES} kernels")
+            got_bitonic = image_io.read_png(png)
+            if not np.array_equal(got_bitonic, got):
+                raise RuntimeError("app: the CLI's --sort bitonic PNG differs from its --sort auto PNG")
     finally:
         logging.getLogger("vk3dgs_tpu_torch").removeHandler(lines)
     config = RenderConfig(width=width, height=height)  # the CLI's
@@ -1263,8 +1402,12 @@ def phase_app(mult: float) -> dict:
         f"ply_load_s {ply_load_s:.3f} (native parser, {report!r}); numpy parser "
         f"{numpy_s:.2f} s, tables equal bit for bit; CLI --ply {width}x{height} "
         f"{APP_FRAMES} frames in {cli_s:.2f} s with the load, launches {launches}; its PNG == "
-        f"Renderer.draw bit for bit; fixture .ply vs golden 8-bit max |Δ| {d}")
-    return {k: v / APP_FRAMES for k, v in launches.items()}, launches
+        f"Renderer.draw bit for bit; --sort bitonic in {bitonic_s:.2f} s, launches "
+        f"{bitonic_launches} ({planned} kernels a sort), its PNG == the first bit for bit; "
+        f"fixture .ply vs golden 8-bit max |Δ| {d}")
+    total = {k: launches[k] + bitonic_launches[k] for k in launches}
+    return ({k: v / APP_FRAMES for k, v in launches.items()},
+            {k: v / APP_FRAMES for k, v in bitonic_launches.items()}, total)
 
 
 # Kernels that no path of the port runs, held to their plain versions in the
@@ -1289,6 +1432,9 @@ META = {
                          "vk3dgaussiansplatting_tpu/ops/pallas/compact_kernel.py:212"),
     "blend_strip": ("vk3dgaussiansplatting_tpu_torch/csrc/blend_strip.cu",
                     "vk3dgaussiansplatting_tpu/ops/pallas/blend_kernel.py:808"),
+    # Not a TPU kernel: an XLA function of the JAX package.
+    "bitonic_sort": ("vk3dgaussiansplatting_tpu_torch/csrc/bitonic.cu",
+                     "vk3dgaussiansplatting_tpu/ops/bitonic.py:38"),
 }
 
 
@@ -1313,6 +1459,12 @@ def main() -> None:
         del renderer, args
         torch.cuda.empty_cache()
     for name in SCENES:
+        results[name]["bitonic_sort"], path_launches, per_frame["bitonic"] = run_bitonic(
+            name, mults[name])
+        for k, v in path_launches.items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+    for name in SCENES:
         renderer, cam, cap, out, path_launches, capped_frame = run_capped(name, mults[name])
         per_frame["capped_steady" if renderer._plan is not None else "capped_temporal"] = capped_frame
         for k in ("expand_rows", "expand_rows_streamed", "blend_flat", "compact_slabs"):
@@ -1322,7 +1474,7 @@ def main() -> None:
             probe_motion(renderer, cam, name)
         del renderer, cap, out
         torch.cuda.empty_cache()
-    per_frame["app_cli"], app_launches = phase_app(mults[APP_SCENE])
+    per_frame["app_cli"], per_frame["app_cli_bitonic"], app_launches = phase_app(mults[APP_SCENE])
     for k, v in app_launches.items():
         launches[k] += v
     dist_runs = run_dist(mults[DIST_SCENE])

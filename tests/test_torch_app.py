@@ -65,10 +65,15 @@ def test_cli_and_engine_raise_without_cuda(tmp_path, monkeypatch):
         cli.main(["--scene", "simple", "--out", str(tmp_path / "x.png")])
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(CONFIG)
-    with pytest.raises(NotImplementedError, match="bitonic"):
-        cli.main(["--cpu", "--scene", "simple", "--sort", "bitonic", "--width", "64",
-                  "--height", "64", "--slack", "16"])
     assert not (tmp_path / "x.png").exists()
+    # --cpu renders without CUDA; the bitonic tier draws the AUTO frame.
+    pngs = {}
+    for algo in ("auto", "bitonic"):
+        pngs[algo] = tmp_path / f"{algo}.png"
+        assert cli.main(["--cpu", "--scene", "simple", "--sort", algo, "--width", "64",
+                         "--height", "64", "--slack", "16", "--out", str(pngs[algo])]) == 0
+    np.testing.assert_array_equal(read_png(pngs["bitonic"]), read_png(pngs["auto"]))
+    assert read_png(pngs["auto"])[..., :3].any()
 
 
 def test_engine_frames_match_jax():

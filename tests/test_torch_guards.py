@@ -1,6 +1,6 @@
 """Guards of the port: no JAX at run time, no silent fallbacks, and clear
-errors for what is not ported yet.  The capped path's own guards are in
-tests/test_torch_capped_plan.py."""
+errors for input the port does not take.  The capped path's own guards are
+in tests/test_torch_capped_plan.py."""
 
 import ast
 import os
@@ -125,9 +125,11 @@ def test_no_handler_catches_kernel_errors():
 
 
 def test_bitonic_sort_not_ported():
-    el = keygen.SortElements(*(torch.zeros(4, dtype=torch.int64) for _ in range(3)),
-                             torch.tensor(4))
-    with pytest.raises(NotImplementedError, match="A16"):
+    """The dispatch raised for BITONIC while the tier was unported (hence
+    the name); it now reaches the tier, whose power-of-two guard raises."""
+    el = keygen.SortElements(*(torch.zeros(6, dtype=torch.int64) for _ in range(3)),
+                             torch.tensor(6))
+    with pytest.raises(ValueError, match="power-of-two capacity, got 6"):
         sort.sort_elements(el, RenderConfig(sort_algorithm=SortAlgorithm.BITONIC))
 
 

@@ -37,7 +37,8 @@ class SortAlgorithm(enum.Enum):
 
     XLA_SORT — a stable sort on one int64 (tile, depth) key
                (ops/sort.py); AUTO means the same.
-    BITONIC  — the reference's bitonic merge network; not ported yet.
+    BITONIC  — the reference's bitonic merge network (ops/bitonic.py);
+               needs a power-of-two capacity.
     """
 
     XLA_SORT = "xla_sort"
@@ -140,6 +141,9 @@ class RenderConfig:
         """Used key bits rounded up to the pass size (RadixSort.cpp:203-204)."""
         sort_bits = 32 + self.num_tile_bits
         return ceil_div(sort_bits, bits_per_pass) * bits_per_pass
+
+    def with_resolution(self, width: int, height: int) -> "RenderConfig":
+        return dataclasses.replace(self, width=width, height=height)
 
 
 # Sentinel key marking unused sort-list capacity: the reference clears the

@@ -73,6 +73,11 @@ SIGNATURES = {
     "vk3d_compact_runs": ([_P, _I64, _P, _P, _I64, _I64, _I64, _P, _I32, _P], ctypes.c_int),
     # src, e, src0, ep, out, device, stream
     "vk3d_compact_segments": ([_P, _I64, _P, _I64, _P, _I32, _P], ctypes.c_int),
+    # tile, depth, index, e, keys, idx, out_tile, out_depth, out_index,
+    # launches (out), device, stream
+    "vk3d_bitonic_sort": (
+        [_P, _P, _P, _I64, _P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I32, _P], ctypes.c_int,
+    ),
     "vk3d_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -12,6 +12,10 @@ because keygen emits gaussians in index order.  Sentinel slots are all-equal.
 The SENTINEL tile 0xFFFFFFFF shifted by 32 would overflow int64, so it is
 first mapped to `num_tiles` (above every live tile, as the JAX sort maps it
 to 0xFFFF) and mapped back after the sort.
+
+`SortAlgorithm.BITONIC` selects the reference's other sort, the bitonic
+merge network (ops/bitonic.py, a CUDA kernel on the card), which gives the
+same order at a power-of-two capacity.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import SENTINEL, RenderConfig, SortAlgorithm
+from . import bitonic
 from .keygen import SortElements
 
 
@@ -43,7 +48,5 @@ def sort_elements(elements: SortElements, config: RenderConfig) -> SortElements:
     if algo in (SortAlgorithm.AUTO, SortAlgorithm.XLA_SORT):
         return sort_elements_xla(elements, config.num_tiles)
     if algo == SortAlgorithm.BITONIC:
-        raise NotImplementedError(
-            "the bitonic sort tier is not ported yet (ROADMAP A16)"
-        )
+        return bitonic.sort_elements_bitonic(elements)
     raise ValueError(f"unknown sort algorithm {algo}")
