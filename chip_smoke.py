@@ -39,7 +39,11 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            (bitonic_kernel.planned_passes); the frame's image_u8 == the AUTO
            frame's bit for bit; the kernel's, plain, torch.sort times, the
            bound (48 B a slot) and the network's floor (its passes x 24 B a
-           slot)
+           slot); the kernel by kind from the profiler (fused global
+           passes, first sort, merges, last merge); four global distances a
+           pass instead of five, bit for bit and timed on the same list;
+           ptxas's registers, spills and stack of every bitonic kernel, any
+           spill or stack failing the phase
   capped   each scene again through Renderer with blend_depth_cap=384,
            blend_cap_max=4096 (the temporal capped blend), same scales:
            train7k_720p on the monolithic temporal frame (3 warm-up + 20
@@ -59,7 +63,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            every lane with its plain version and with the parent's layout
            code (the unmasked K5, the K1 chunk map and the mask), and the
            layout's gid; the unmasked compact_runs and K6 (on the slabs'
-           chunk offsets) on every lane, K1' (garden) bit-exact; the capped
+           chunk offsets, with its kernel's profiler time) on every lane,
+           K1' (garden) bit-exact; the capped
            image against the uncapped K2 frame of the same camera within
            ±1 8-bit on r, g and b; ok true on the last timed frame
   app      the app path at garden30k_1080p's size and calibrated scale:
@@ -238,23 +243,33 @@ def phase_device() -> str:
     return name
 
 
+def ptxas_report() -> list[list[str]]:
+    """ptxas's report of the built library, one entry a kernel: its name
+    with its template arguments, then its registers, shared memory, stack
+    and spills."""
+    report = _build.library_path().with_suffix(".log")
+    entries = []
+    for ln in report.read_text().splitlines() if report.exists() else []:
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            k = re.search(r"([a-z][a-z_]*_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
+            if not k:
+                entries.append([m.group(1)])
+                continue
+            args = re.findall(r"L([ib])(\d+)E", k.group(2) or "")
+            targs = [v if t == "i" else ("true" if v == "1" else "false") for t, v in args]
+            entries.append([k.group(1) + (f"<{', '.join(targs)}>" if targs else "")])
+        elif entries and ("Used" in ln or "spill" in ln):
+            entries[-1].append(ln.split("ptxas info    :")[-1].strip())
+    return entries
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     path = _build.build()
     _build.load_library()
     seconds = time.perf_counter() - t0
-    report = path.with_suffix(".log")
-    # ptxas's report, one entry a kernel: its name, registers, shared
-    # memory, stack and spills.
-    entries = []
-    for ln in report.read_text().splitlines() if report.exists() else []:
-        if m := re.search(r"Compiling entry function '(\w+)'", ln):
-            k = re.search(r"[a-z][a-z_]*_kernel(ILb[01]E)?", m.group(1))
-            name = k.group(0) if k else m.group(1)
-            entries.append([name.replace("ILb1E", "<true>").replace("ILb0E", "<false>")])
-        elif entries and ("Used" in ln or "spill" in ln):
-            entries[-1].append(ln.split("ptxas info    :")[-1].strip())
-    log(f"build: {path.name} in {seconds:.2f} s; ptxas: {' | '.join(' '.join(e) for e in entries)}")
+    log(f"build: {path.name} in {seconds:.2f} s; ptxas: "
+        f"{' | '.join(' '.join(e) for e in ptxas_report())}")
 
 
 def make_scene(name: str):
@@ -481,17 +496,42 @@ def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, til
             "slots_batch": int(per_tile_batch.sum()), "rows_batch": distinct_rows(per_tile_batch)}
 
 
-def device_breakdown(fn, iters: int = 10) -> dict:
-    """Device ms per call of each kernel that `fn` launches, from
-    torch.profiler's CUDA activity."""
+def _profile(fn, iters: int):
+    """torch.profiler's CUDA kernels over `iters` calls of `fn` after one
+    warm-up: (name, device ms summed, launches) of each kernel."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {ev.key[:60]: round(ev.self_device_time_total / 1e3 / iters, 4)
-            for ev in prof.key_averages() if ev.self_device_time_total > 0}
+    return [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages() if ev.self_device_time_total > 0]
+
+
+def _per_call(ms: float, launches: int, iters: int) -> tuple[float, int]:
+    """Device ms and launches a call: the mean launch times the launches a
+    call (the profiler can miss the window's first launch or two)."""
+    n = max(1, round(launches / iters))
+    return round(ms / launches * n, 4), n
+
+
+def device_breakdown(fn, iters: int = 10) -> dict:
+    """Device ms per call of each kernel that `fn` launches, from
+    torch.profiler's CUDA activity."""
+    return {key[:60]: _per_call(ms, n, iters)[0] for key, ms, n in _profile(fn, iters)}
+
+
+def device_kinds(fn, kinds: dict, iters: int = 3) -> dict:
+    """Device ms and kernel launches per call of `fn`, summed by kind: each
+    profiled kernel goes to the first kind whose pattern its name matches
+    (`kinds`: kind -> regular expression), "other" if none does."""
+    out = {}
+    for key, ms, n in _profile(fn, iters):
+        kind = next((k for k, pat in kinds.items() if re.search(pat, key)), "other")
+        total, count = out.get(kind, (0.0, 0))
+        out[kind] = (total + ms, count + n)
+    return {k: dict(zip(("ms", "kernels"), _per_call(ms, n, iters))) for k, (ms, n) in out.items()}
 
 
 def check_image(img: torch.Tensor, config: RenderConfig, what: str) -> None:
@@ -765,6 +805,12 @@ def run_bitonic(name: str, mult: float):
         raise RuntimeError(f"{name}: bitonic_sort wrote its input")
     del before
 
+    # ptxas on the kernels: no spills and no stack.
+    ptxas = [" ".join(x) for x in ptxas_report() if x[0].startswith("bitonic_")]
+    for entry in ptxas:
+        if re.search(r"[1-9]\d* bytes (stack frame|spill)", entry):
+            raise RuntimeError(f"bitonic kernel spills or uses a stack: {entry}")
+
     auto = Renderer(dataclasses.replace(config, sort_algorithm=SortAlgorithm.AUTO), device="cuda")
     auto.init_for_scene(renderer.table)
     auto_out, auto_ms, auto_passes = timed_draws(auto, cam, base, BITONIC_FRAMES)
@@ -776,7 +822,13 @@ def run_bitonic(name: str, mult: float):
         "ms": cuda_ms(lambda: bitonic_ops.sort_elements_bitonic(el), 10),
         "plain_ms": cuda_ms(lambda: bitonic_ops.sort_elements_bitonic_plain(el), 1),
         "library_ms": cuda_ms(lambda: sort.sort_elements_xla(el, config.num_tiles), 10),
-        "device_ms": device_breakdown(lambda: bitonic_ops.sort_elements_bitonic(el), 3),
+        # The kernel by kind, from the profiler: ms and kernels a sort.
+        "device_ms": device_kinds(lambda: bitonic_ops.sort_elements_bitonic(el), {
+            "fused global passes": r"bitonic_global_kernel",
+            "first sort": r"bitonic_shared_kernel<true",
+            "merges": r"bitonic_shared_kernel<false, false>",
+            "last merge": r"bitonic_shared_kernel<false, true>",
+        }),
         "kernels_per_sort": planned,
         # The network's own floor: every kernel reads and writes 12 B a slot.
         "network_floor_ms": planned * 24 * e / PEAK_BYTES_PER_S * 1e3,
@@ -795,8 +847,8 @@ def run_bitonic(name: str, mult: float):
         f"== the AUTO frame's bit for bit; kernel {res['ms']:.3f} ms vs plain "
         f"{res['plain_ms']:.3f} ms, torch.sort (sort_elements_xla) {res['library_ms']:.3f} ms; "
         f"bound {res['bound_ms']:.4f} ms (48 B a slot, {res['bound_by']}), the network's floor "
-        f"{res['network_floor_ms']:.3f} ms ({planned} kernels x 24 B a slot); kernels "
-        f"{res['device_ms']}")
+        f"{res['network_floor_ms']:.3f} ms ({planned} kernels x 24 B a slot); by kind "
+        f"{res['device_ms']}; ptxas {' | '.join(ptxas)}")
     return res, launches, {k: v / drawn for k, v in launches.items()}
 
 
@@ -1057,6 +1109,8 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         "library_ms": None,
         **bound(16 * ep5 + 8 * src0.shape[0], 0),
         "ms": cuda_ms(lambda: compact_kernel.compact_segments(src, src0, ep5), 20),
+        # The kernel alone, from the profiler (ms includes the host's launch).
+        "device_ms": device_breakdown(lambda: compact_kernel.compact_segments(src, src0, ep5)),
         "plain_ms": cuda_ms(lambda: compact_kernel.compact_segments_plain(src, src0, ep5), 3),
     }
 
@@ -1102,6 +1156,7 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         f"{res['compact_runs']['ms']:.3f} ms vs plain {res['compact_runs']['plain_ms']:.3f}, "
         f"bound {res['compact_runs']['bound_ms']:.4f}; compact_segments bit-exact, "
         f"{res['compact_segments']['ms']:.3f} ms vs plain {res['compact_segments']['plain_ms']:.3f}, "
+        f"kernels {res['compact_segments']['device_ms']}, "
         f"bound {res['compact_segments']['bound_ms']:.4f}"
         + "".join(f"; {k} bit-exact, {res[k]['ms']:.3f} ms vs plain {res[k]['plain_ms']:.3f}, "
                   f"repeat_interleave {res[k]['library_ms']:.3f}, bound {res[k]['bound_ms']:.4f} "

@@ -8,7 +8,8 @@ model of its passes, the bitonic frame against JAX's (elements and ranges
 bit-exact, images ±1 8-bit per channel) and against the port's AUTO frame
 bit for bit, and `RenderConfig.with_resolution`.  On the card (`cuda`
 marker, skipped without one): the kernel against the plain version and the
-stable tier at E = 1, 2, B/2, B, 2B and 2^20, its input left as it was.
+stable tier at E = 1, 2, B/2, B, 2B and 2^20, its input left as it was
+(tests/test_torch_bitonic_fused.py holds it at more sizes and groups).
 """
 
 import dataclasses
@@ -117,43 +118,131 @@ def test_non_power_of_two_raises_in_both_packages():
         tbit.sort_elements_bitonic(_torch_elements(tile, depth, idx))
 
 
-def _run_schedule(tile, depth, idx, block):
-    """csrc/bitonic.cu's passes in numpy: each stage's pairs from the
-    kernel's index arithmetic (pair_low, pair_high), compared on the packed
-    (tile << 32 | depth, index) as the kernel compares them."""
+# csrc/bitonic.cu's index arithmetic, restated for the numpy model.
+PER_THREAD_LOG = 5  # a shared pass's thread holds 2^5 elements (kPerLog)
+
+
+def slot_groups(e, lo, g):
+    """[e >> g, 2^g] int64: the slots each thread of a global pass over the
+    distances 2^lo .. 2^(lo+g-1) owns, by register (bitonic_global_kernel)."""
+    tid = torch.arange(e >> g, dtype=torch.int64)
+    base = ((tid >> lo) << (lo + g)) | (tid & ((1 << lo) - 1))
+    return base[:, None] + (torch.arange(1 << g, dtype=torch.int64) << lo)
+
+
+def layout_slots(block, b):
+    """[threads, 32] int64: the block slots each thread of a shared pass
+    holds in layout b, by register (layout_base(t, b) | u << b)."""
+    t = torch.arange(block >> PER_THREAD_LOG, dtype=torch.int64)
+    base = ((t >> b) << (b + PER_THREAD_LOG)) | (t & ((1 << b) - 1))
+    return base[:, None] | (torch.arange(1 << PER_THREAD_LOG, dtype=torch.int64) << b)
+
+
+def layout_for(x, block):
+    """The layout a shared pass re-maps to when the stage at distance 2^x
+    is outside its current one (layout_for)."""
+    top = block.bit_length() - 1 - PER_THREAD_LOG
+    if x < PER_THREAD_LOG:
+        return 0
+    return top - PER_THREAD_LOG * ((top - x + PER_THREAD_LOG - 1) // PER_THREAD_LOG)
+
+
+def swizzle(p):
+    """The shared-memory word of block slot p (swizzle)."""
+    return p ^ ((p >> 5) & 31)
+
+
+def _compare_exchange(key, idx, u, v, ascending):
+    """The kernel's compare_exchange on register columns u and v of
+    [..., n] arrays: the smaller (key, index) to u where `ascending`, the
+    larger elsewhere (equal triples swap where descending)."""
+    ku, kv, iu, iv = key[..., u], key[..., v], idx[..., u], idx[..., v]
+    swap = ((kv < ku) | ((kv == ku) & (iv < iu))) == ascending
+    key[..., u], key[..., v] = np.where(swap, kv, ku), np.where(swap, ku, kv)
+    idx[..., u], idx[..., v] = np.where(swap, iv, iu), np.where(swap, iu, iv)
+
+
+def _register_stage(key, idx, slots, k, m):
+    """One stage at register bit m: register u against u | 1 << m, each
+    pair's direction from its lower slot's bit k."""
+    n = key.shape[-1]
+    u = np.array([r for r in range(n) if not r >> m & 1])
+    _compare_exchange(key, idx, u, u | 1 << m, (slots[..., u] & k) == 0)
+
+
+def _shared_pass(key, idx, stages, block):
+    """A shared pass in numpy as the kernel runs it: each block's registers
+    [threads, 32] in the coalesced layout, re-mapped through the block
+    (`layout_slots`, `layout_for`) when a stage's distance leaves the
+    layout, the all-ones padding of a lone block shorter than `block`."""
+    e = key.shape[0]
+    n = min(e, block)
+    nb = e // n
+    ones = np.iinfo(np.uint64).max
+    bk = np.full((nb, block), ones, np.uint64)
+    bi = np.full((nb, block), np.uint32(SENTINEL), np.uint32)
+    bk[:, :n], bi[:, :n] = key.reshape(nb, n), idx.reshape(nb, n)
+    top = block.bit_length() - 1 - PER_THREAD_LOG
+    b, slots = top, layout_slots(block, top).numpy()
+    rk, ri = bk[:, slots], bi[:, slots]
+    base = np.arange(nb, dtype=np.int64)[:, None, None] * block
+    for k, j in stages:
+        x = j.bit_length() - 1
+        assert 2 * j <= block, "a shared pass's pair leaves its block"
+        if not b <= x < b + PER_THREAD_LOG:
+            bk[:, slots], bi[:, slots] = rk, ri
+            b = layout_for(x, block)
+            slots = layout_slots(block, b).numpy()
+            rk, ri = bk[:, slots], bi[:, slots]
+        _register_stage(rk, ri, base + slots, k, x - b)
+    bk[:, slots], bi[:, slots] = rk, ri
+    return bk[:, :n].reshape(-1), bi[:, :n].reshape(-1)
+
+
+def _run_schedule(tile, depth, idx, block, group=tbk.GROUP):
+    """csrc/bitonic.cu's passes in numpy, compared on the packed
+    (tile << 32 | depth, index) as the kernels compare them: XOR pairs
+    ascending where slot & k == 0; each global pass on its threads'
+    register groups (`slot_groups`: all of the pass's stages inside one
+    thread's row), each shared pass through its layouts (`_shared_pass`)."""
     key = (tile.astype(np.uint64) << np.uint64(32)) | depth.astype(np.uint64)
     idx = idx.astype(np.uint32)
     e = key.shape[0]
-    p = np.arange(e // 2, dtype=np.int64)
-    passes = tbk.schedule(e, block)
-    for stages in passes:
-        for flip, d in stages:
-            if len(stages) == 1 and d >= block:  # a global pass
-                assert stages is not passes[0] and stages is not passes[-1]
-            else:  # a shared-memory pass: every pair inside its block
-                assert 2 * d <= min(e, block)
-            q = p & (d - 1)
-            lo = ((p & ~(d - 1)) << 1) | q
-            hi = lo + 2 * d - 1 - 2 * q if flip else lo + d
-            swap = (key[hi] < key[lo]) | ((key[hi] == key[lo]) & (idx[hi] < idx[lo]))
-            a, b = lo[swap], hi[swap]
-            key[a], key[b] = key[b], key[a].copy()
-            idx[a], idx[b] = idx[b], idx[a].copy()
+    for kind, stages in tbk.schedule(e, block, group):
+        if kind != "global":
+            key, idx = _shared_pass(key, idx, stages, block)
+            continue
+        lo = stages[-1][1].bit_length() - 1
+        g = len(stages)
+        assert g <= group and all(j == stages[0][1] >> s for s, (_k, j) in enumerate(stages))
+        slots = slot_groups(e, lo, g).numpy()
+        rk, ri = key[slots], idx[slots]
+        for k, j in stages:
+            _register_stage(rk, ri, slots, k, j.bit_length() - 1 - lo)
+        key[slots], idx[slots] = rk, ri
     return [x.astype(np.int64) for x in (key >> np.uint64(32), key & np.uint64(0xFFFFFFFF), idx)]
 
 
 def test_kernel_schedule_sorts():
-    """The launch schedule sorts, keeps the reference's pass structure and
-    takes 105 launches at 2^24 slots (garden's bitonic capacity), 91 at 2^23."""
-    assert [tbk.planned_passes(1 << k) for k in (0, 1, 11, 12, 23, 24)] == [1, 1, 1, 3, 91, 105]
+    """The launch schedule sorts and takes 30 launches at 2^24 slots
+    (garden's bitonic capacity), 26 at 2^23 (105 and 91 on the reference's
+    dispatch schedule; 29 and 25 at B = 2^14 with four distances a global
+    pass); at small blocks and groups and at the real BLOCK the numpy model
+    of its passes equals the plain version bit for bit."""
+    assert [tbk.planned_passes(1 << k) for k in (0, 1, 13, 14, 18, 19, 23, 24)] == [
+        1, 1, 1, 3, 11, 14, 26, 30]
+    assert [tbk.planned_passes(1 << k, 1 << 14, 4) for k in (23, 24)] == [25, 29]
+    assert tbk.planned_passes(1 << 24, group=4) == 33
     rng = np.random.default_rng(3)
-    for block, sizes in ((8, (1, 2, 4, 8, 16, 64, 1024)), (tbk.BLOCK, (1024, 8192))):
+    for block, group, sizes in ((32, 1, (1, 2, 32, 256)), (64, 3, (1024,)), (128, 5, (1 << 14,)),
+                                (tbk.BLOCK, tbk.GROUP, (1024, 1 << 16))):
         for e in sizes:
             tile, depth, idx = _random_elements(rng, e)
             want = tbit.sort_elements_bitonic_plain(_torch_elements(tile, depth, idx))
-            got = _run_schedule(tile, depth, idx, block)
+            got = _run_schedule(tile, depth, idx, block, group)
             for name, g in zip(("tile", "depth", "index"), got):
-                np.testing.assert_array_equal(g, getattr(want, name).numpy(), f"{block} {e} {name}")
+                np.testing.assert_array_equal(g, getattr(want, name).numpy(),
+                                              f"{block} {group} {e} {name}")
 
 
 def _scene(name):
@@ -229,10 +318,15 @@ def _needs_card():
 
 @pytest.mark.cuda
 def test_bitonic_kernel_on_cuda():
+    """Through sort_elements_bitonic, on columns that are strided views of
+    one [E, 3] tensor (the wrapper copies them to contiguous columns)."""
     _needs_card()
     rng = np.random.default_rng(5)
     for e in (1, 2, tbk.BLOCK // 2, tbk.BLOCK, 2 * tbk.BLOCK, 1 << 20):
-        el = _torch_elements(*_random_elements(rng, e), device="cuda")
+        dense = _torch_elements(*_random_elements(rng, e), device="cuda")
+        rows = torch.stack(dense[:3], dim=1)
+        el = tkg.SortElements(rows[:, 0], rows[:, 1], rows[:, 2], dense.count)
+        assert not el.tile.is_contiguous() or e == 1
         before = [x.clone() for x in el[:3]]
         launches, passes = tbk.LAUNCHES, tbk.PASSES
         got = tbit.sort_elements_bitonic(el)

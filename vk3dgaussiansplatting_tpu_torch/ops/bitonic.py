@@ -5,9 +5,15 @@ The reference selects between RadixSort and BitonicMergeSort at compile time
 BIG_FLIP / BIG_DISPERSE / LOCAL_DISPERSE dispatches over a power-of-two
 element buffer (BitonicMergeSort.cpp:103-149).  The JAX package writes the
 same compare-exchange network as one XLA fusion a stage, dropping the
-shared-memory split; on CUDA tensors the port runs it as a kernel again
-with that split (ops/cuda/bitonic_kernel.py, csrc/bitonic.cu), and on CPU
-tensors `sort_elements_bitonic_plain`, the JAX stage schedule in torch ops.
+shared-memory split.  On CPU tensors the port runs
+`sort_elements_bitonic_plain`, the JAX stage schedule in torch ops.  On
+CUDA tensors it runs a kernel (ops/cuda/bitonic_kernel.py,
+csrc/bitonic.cu) that departs from the reference's dispatch schedule: the
+network in its XOR form (slot i against i ^ j, ascending where i & k == 0),
+blocks of 2^13 elements in shared memory, and the global distances of each
+k fused five to a pass in registers — 30 kernels a sort at 2^24 slots
+where the reference's schedule takes 105.  Its stages differ from the JAX
+tier's; the sorted array, the only thing either returns, does not.
 
 The order is lexicographic on (tile, depth, index), the uint32 values the
 port carries in int64 tensors (ops/keygen.py).  SENTINEL is the largest

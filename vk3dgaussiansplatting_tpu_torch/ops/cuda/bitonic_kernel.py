@@ -2,11 +2,12 @@
 
 Replaces vk3dgaussiansplatting_tpu/ops/bitonic.py:sort_elements_bitonic (an
 XLA function of the JAX package, not a Pallas kernel).  One call of the C
-entry point runs the whole network on the current stream, on the reference
-renderer's dispatch schedule: one shared-memory pass sorting each block of
-`BLOCK` elements, then for each k = 2·BLOCK .. E a global flip, a global
-disperse a distance j with BLOCK <= j <= k/4, and a shared-memory pass for
-the distances below BLOCK (`planned_passes`).
+entry point runs the whole network on the current stream, in its XOR form
+(stage (k, j): slot i against i ^ j, ascending where i & k == 0): one
+shared-memory pass sorting each block of `BLOCK` elements, then for each
+k = 2·BLOCK .. E the global distances k/2 .. BLOCK fused `GROUP` to a pass
+in registers, and one shared-memory pass for the distances below BLOCK
+(`schedule`, `planned_passes`).
 
 The columns are int64 tensors holding uint32 values (ops/keygen.py), each
 in [0, 2^32); the order is lexicographic on (tile, depth, index).  The
@@ -26,41 +27,52 @@ from . import _build
 
 LAUNCHES = 0
 PASSES = 0
-# Elements a block sorts in shared memory: csrc/bitonic.cu's kBlock
-# (2 x 1024 threads, one pair a thread; 24 KB of shared memory).
-BLOCK = 2048
+# Elements a block sorts in shared memory (csrc/bitonic.cu's kLogBlock):
+# 2^13, 12 B each in 96 KB of dynamic shared memory, 256 threads holding 32
+# elements each, two blocks an SM in a merge.
+BLOCK = 1 << 13
+# Global distances fused into one pass, 2^GROUP elements a thread
+# (csrc/bitonic.cu's kGroup); five keep a sort at 2^24 to 30 kernels.
+GROUP = 5
 
 
-def schedule(e: int, block: int = BLOCK) -> list[list[tuple[bool, int]]]:
+def _halving(hi: int, lo: int) -> list[int]:
+    out = []
+    while hi >= lo:
+        out.append(hi)
+        hi //= 2
+    return out
+
+
+def schedule(e: int, block: int = BLOCK,
+             group: int = GROUP) -> list[tuple[str, list[tuple[int, int]]]]:
     """The kernels csrc/bitonic.cu launches for `e` elements (a power of
-    two), in order: each the list of its stages, (flip, distance)."""
+    two), in order: each (kind, its stages (k, j) in order).  Kinds:
+    "first" sorts each block of `block` elements from the columns (a lone
+    shorter block padded with all-ones triples), "global" fuses up to
+    `group` distances >= block of one k, "merge" runs the distances below
+    block of one k.  A `block` or `group` other than the kernel's serves the
+    numpy model of the passes."""
     if e <= 0:
         return []
-
-    def disperses(hi: int, lo: int) -> list[tuple[bool, int]]:
-        out, j = [], hi
-        while j >= lo:
-            out.append((False, j))
-            j //= 2
-        return out
-
-    local_sort, k = [], 2  # LOCAL_BMS over blocks of min(e, block)
-    while k <= min(e, block):
-        local_sort += [(True, k // 2)] + disperses(k // 4, 1)
+    first, k = [], 2
+    while k <= block:
+        first += [(k, j) for j in _halving(k // 2, 1)]
         k *= 2
-    passes = [local_sort]
+    passes = [("first", first)]
     k = 2 * block
     while k <= e:
-        passes.append([(True, k // 2)])  # BIG_FLIP
-        passes += [[stage] for stage in disperses(k // 4, block)]  # BIG_DISPERSE
-        passes.append(disperses(block // 2, 1))  # LOCAL_DISPERSE
+        dist = _halving(k // 2, block)
+        passes += [("global", [(k, j) for j in dist[i : i + group]])
+                   for i in range(0, len(dist), group)]
+        passes.append(("merge", [(k, j) for j in _halving(block // 2, 1)]))
         k *= 2
     return passes
 
 
-def planned_passes(e: int) -> int:
+def planned_passes(e: int, block: int = BLOCK, group: int = GROUP) -> int:
     """Kernel launches of one sort of `e` elements."""
-    return len(schedule(e))
+    return len(schedule(e, block, group))
 
 
 def bitonic_sort(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor):
@@ -73,10 +85,10 @@ def bitonic_sort(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor):
             raise ValueError(f"{name} must be [{e}] int64, got {tuple(x.shape)} {x.dtype}")
         if x.device != tile.device:
             raise ValueError("tile, depth and index must be on one device")
-    if tile.device.type != "cuda":
-        raise ValueError(f"unsupported device {tile.device}")
     if e & (e - 1):
         raise ValueError(f"bitonic sort requires a power-of-two length, got {e}")
+    if tile.device.type != "cuda":
+        raise ValueError(f"unsupported device {tile.device}")
     cols = [x.contiguous() for x in (tile, depth, index)]
     out = [torch.empty_like(x) for x in cols]
     if e == 0:
@@ -88,8 +100,8 @@ def bitonic_sort(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor):
     err = _build.load_library().vk3d_bitonic_sort(
         *(x.data_ptr() for x in cols), e,
         None if keys is None else keys.data_ptr(), None if idx is None else idx.data_ptr(),
-        *(x.data_ptr() for x in out), ctypes.byref(launched), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        *(x.data_ptr() for x in out), ctypes.byref(launched),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(err, "bitonic_sort")
     LAUNCHES += 1
