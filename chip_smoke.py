@@ -8,7 +8,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
 
   device   the card's name, and name + power limit from nvidia-smi
   build    the CUDA kernels compiled from csrc/, one nvcc per source, all
-           started together (seconds, ptxas report)
+           started together (seconds, ptxas report); K7 and K8 without a
+           spill or a stack, or the run fails
   fixture  the fixture scenes on the card (kernels) against the CPU (plain
            versions): element counts equal, 8-bit ±1 per channel
   check    K1 against its plain version bit for bit on edge cases (zero
@@ -16,15 +17,25 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            total > E, E % 4 != 0, N = 0)
   scene    train7k_720p: the benchmark stand-in cloud (559,263 gaussians,
            1280x720, capacity 4,245,663), scale calibrated to 3,487,911 live
-           elements ±3%; 3 warm-up + 20 timed frames with the camera nudged
-           each frame; median ms/frame and per-pass ms from CUDA events; K1
-           and K2 launch once a frame, and no feature table is built
+           elements ±3% (K7's counts mode); 3 warm-up + 20 timed frames with
+           the camera nudged each frame; median ms/frame and per-pass ms from
+           CUDA events; K7, K1, K8 and K2 launch once a frame, and no feature
+           table is built
   check    on that scene's last frame: keygen/sort/ranges on the card ==
            on the CPU bit for bit; K1 == its plain version bit for bit; K2
            (blend_tiles on the frame's own GaussianFrameData) vs its plain
            version per channel 8-bit max |Δ| <= 2 with |Δ| > 1 on at most
            1e-4 of pixel-channels; kernel, plain and library times and the
-           bound
+           bound.  K7 keygen_project against project_gaussians_plain on the
+           frame's own table, camera and config (train7k also in the other
+           two SH modes): counts, the packed int32 rows (depth keys,
+           extents), the extents and the visible / keep flags bit for bit;
+           each float column of the frame data within 1 ulp on at most 1e-6
+           of its values, every differing gaussian checked to be an _fma tie
+           of the plain version (`fma_ties`); its counts mode bit for bit;
+           K8 decode_slots against decode_slots_plain on K1's columns bit for
+           bit; their times, plain times and bounds (K7 316 B a gaussian,
+           K8 24 B a live slot + 24 B a slot)
   scene    garden30k_1080p: 5,834,784 gaussians at 1920x1080, capacity
            14,190,624, calibrated to 13,098,506 live ±3%; 3 warm-up + 10
            timed frames; the same checks of K1 and K2
@@ -64,7 +75,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            code (the unmasked K5, the K1 chunk map and the mask), and the
            layout's gid; the unmasked compact_runs and K6 (on the slabs'
            chunk offsets, with its kernel's profiler time) on every lane,
-           K1' (garden) bit-exact; the capped
+           K1' (garden) bit-exact; K7 and K8 as above on garden's
+           prefiltered frame, with its live thresholds; the capped
            image against the uncapped K2 frame of the same camera within
            ±1 8-bit on r, g and b; ok true on the last timed frame
   app      the app path at garden30k_1080p's size and calibrated scale:
@@ -72,7 +84,7 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            load_gaussians through the native parser (ply_load_s, the
            parser from its log line), its table bit for bit with the numpy
            parser's; the CLI on the card (--ply, 1920x1080, 3 frames, --out:
-           K1 and K2 once a frame), its PNG read back with the port's
+           K7, K1, K8 and K2 once a frame), its PNG read back with the port's
            read_png bit for bit with Renderer.draw on the same table and
            camera; the CLI again with --sort bitonic, its PNG bit for bit
            with the first (the bitonic kernel once a frame); the .ply fixture rendered as tests/test_ply_fixture.py
@@ -134,7 +146,9 @@ import torch
 import torch.distributed as tdist
 
 from vk3dgaussiansplatting_tpu_torch.app import cli
-from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL, RenderConfig, SortAlgorithm
+from vk3dgaussiansplatting_tpu_torch.core.config import (
+    SENTINEL, RenderConfig, SortAlgorithm, SphericalHarmonicsMode,
+)
 from vk3dgaussiansplatting_tpu_torch.io import image as image_io
 from vk3dgaussiansplatting_tpu_torch.io import ply
 from vk3dgaussiansplatting_tpu_torch.models.gaussians import GaussianTable, from_raw_ply_columns
@@ -143,10 +157,11 @@ from vk3dgaussiansplatting_tpu_torch.ops import blend as blend_ops
 from vk3dgaussiansplatting_tpu_torch.ops import capped as capped_ops
 from vk3dgaussiansplatting_tpu_torch.ops import keygen, ranges, sort
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import (
-    _build, bitonic_kernel, blend_kernel, compact_kernel, expand_kernel,
+    _build, bitonic_kernel, blend_kernel, compact_kernel, expand_kernel, keygen_kernel,
 )
 from vk3dgaussiansplatting_tpu_torch.parallel import dist, mesh, multihost
 from vk3dgaussiansplatting_tpu_torch.pipeline import Renderer, render_frame
+from vk3dgaussiansplatting_tpu_torch.render import project
 from vk3dgaussiansplatting_tpu_torch.render.camera import Camera
 from vk3dgaussiansplatting_tpu_torch.scenes import synthetic
 from vk3dgaussiansplatting_tpu_torch.utils.timing import CudaPassTimer
@@ -201,6 +216,22 @@ FLOPS_PER_COLOUR = 7
 # 12, color_alpha 16), and of a pack_feature_table row (K4).
 FRAME_ROW_BYTES = 36
 TABLE_ROW_BYTES = 40
+# K7 keygen_project, a gaussian: the table row it reads (position 12, scale
+# 12, rot 16, opacity 4, the SH row 192), and what the wrapper writes (the
+# count 8, the six int32 column rows 24, the frame data 48); in the counts
+# mode it reads position, scale and rot and writes the count.  Its float32
+# operations (a multiply-add counts 2), as csrc/keygen.cu writes them: view
+# transform 18, NDC 14, depth 3, rotation 54, R S 9, W R S 45, the Jacobian
+# 13, J A 18, covariance 17, screen 6, extents 21, direction 12, SH basis
+# 30, SH dot 96, colour 6, inverse 4.
+KEYGEN_READ_BYTES = 236
+KEYGEN_WRITE_BYTES = 80
+KEYGEN_COUNT_BYTES = 48
+KEYGEN_FLOPS = 366
+# K7's floats against its plain version: at most 1 ulp apart, on at most
+# this share of a column's values, each at an _fma tie of the plain version.
+KEYGEN_MAX_ULP = 1
+KEYGEN_MAX_FRAC = 1e-6
 
 # Launch counters of the kernel wrappers.
 COUNTERS = {
@@ -213,6 +244,10 @@ COUNTERS = {
     "compact_segments": (compact_kernel, "SEGMENTS_LAUNCHES"),
     "blend_strip": (blend_kernel, "STRIP_LAUNCHES"),
     "bitonic_sort": (bitonic_kernel, "LAUNCHES"),
+    "keygen_project": (keygen_kernel, "LAUNCHES"),
+    # K7 in its counts mode (count_live_elements): the steady switch's probe.
+    "keygen_count": (keygen_kernel, "COUNT_LAUNCHES"),
+    "decode_slots": (keygen_kernel, "DECODE_LAUNCHES"),
 }
 
 
@@ -329,6 +364,8 @@ class Capture:
         (compact_kernel, "compact_slabs"),
         (capped_ops, "capped_finish"),
         (bitonic_ops, "sort_elements_bitonic"),
+        (keygen_kernel, "project_gaussians"),
+        (keygen_kernel, "decode_slots"),
     )
 
     def __init__(self):
@@ -575,6 +612,10 @@ def phase_fixtures() -> None:
             f"8-bit max |Δ| {int(d.max())}")
 
 
+# The kernels the uncapped frame launches once each.
+UNCAPPED_PATH = ("keygen_project", "expand_rows", "decode_slots", "blend_tiles")
+
+
 def run_scene(name: str):
     table, config, cam, target, frames = make_scene(name)
     dev = torch.device("cuda")
@@ -602,9 +643,10 @@ def run_scene(name: str):
         torch.cuda.synchronize()
     drawn = WARMUP_FRAMES + frames
     counts = read_counts()
-    launches = {k: v for k, v in counts.items() if k in ("expand_rows", "blend_tiles")}
+    launches = {k: v for k, v in counts.items() if k in UNCAPPED_PATH}
     if any(v != drawn for v in launches.values()):
-        raise RuntimeError(f"{name}: K1 and K2 must launch once a frame, {drawn} frames: {launches}")
+        raise RuntimeError(f"{name}: K7, K1, K8 and K2 must launch once a frame, {drawn} frames: "
+                           f"{launches}")
     tables = cap.counts.get("pack_feature_table", 0)
     if tables:
         raise RuntimeError(f"{name}: the uncapped frame built {tables} feature tables")
@@ -740,6 +782,156 @@ def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
     return {"expand_rows": k1, "blend_tiles": k2}
 
 
+def fma_tie(a, b, c) -> torch.Tensor:
+    """Where project._fma(a, b, c) rounds twice on a float32 tie: the
+    float64 sum a*b + c inexact (TwoSum's error term; the product is exact)
+    and exactly halfway between two float32 values."""
+    a, b, c = (x.double() for x in (a, b, c))
+    prod = a * b
+    s = prod + c
+    bb = s - prod
+    inexact = ((prod - (s - bb)) + (c - bb)) != 0
+    f = s.float()
+    other = torch.nextafter(f, torch.where(f.double() < s, math.inf, -math.inf).float())
+    return inexact & (f.double() != s) & ((s - f.double()).abs() == (other.double() - s).abs())
+
+
+def fma_ties(call, rows: torch.Tensor) -> torch.Tensor:
+    """For each gaussian of `rows`: whether the plain version, run on those
+    gaussians alone, rounds an `_fma` twice on a float32 tie (its float64
+    sum inexact and exactly halfway between two float32 values), where a
+    true fused multiply-add, K7's and XLA's, can round the other way."""
+    table, *rest = call
+    sub = GaussianTable(*(getattr(table, f.name)[rows] for f in dataclasses.fields(GaussianTable)))
+    tie = torch.zeros(rows.numel(), dtype=torch.bool, device=rows.device)
+    real = project._fma
+
+    def fma(a, b, c):
+        flag = fma_tie(*(torch.as_tensor(x, device=rows.device) for x in (a, b, c)))
+        tie.logical_or_(flag.reshape(flag.shape[0], -1).any(1))
+        return real(a, b, c)
+
+    project._fma = fma
+    try:
+        keygen_kernel.project_gaussians_plain(sub, *rest)
+    finally:
+        project._fma = real
+    return tie
+
+
+def check_projection(call, what: str) -> dict:
+    """K7 against its plain version on one call's own inputs: counts, the
+    packed rows, extents and the visible / keep flags bit for bit; each
+    float column within KEYGEN_MAX_ULP on at most KEYGEN_MAX_FRAC of its
+    values, every differing gaussian at an _fma tie (`fma_ties`); the
+    counts mode's counts bit for bit."""
+    got = keygen_kernel.project_gaussians(*call, with_aux=True)
+    want = keygen_kernel.project_gaussians_plain(*call, with_aux=True)
+    bad = keygen_kernel.projection_mismatch(got, want)
+    ints = {k: bad[k] for k in keygen_kernel.INT_FIELDS if bad[k]}
+    if ints:
+        raise RuntimeError(f"{what}: keygen_project's integer outputs differ from its plain "
+                           f"version: {ints}")
+    n = call[0].num_gaussians
+    rows = torch.zeros(n, dtype=torch.bool, device=got.counts.device)
+    max_abs = 0.0
+    for k in keygen_kernel.FLOAT_FIELDS:
+        count, ulp = bad[k]
+        if ulp > KEYGEN_MAX_ULP or count > KEYGEN_MAX_FRAC * getattr(want, k).numel():
+            raise RuntimeError(f"{what}: keygen_project's {k} differs at {count} values, max "
+                               f"{ulp} ulp")
+        a, b = getattr(got, k), getattr(want, k)
+        d = keygen_kernel.ulp_distance(a, b).reshape(n, -1) > 0
+        rows |= d.any(1)
+        if d.any():
+            max_abs = max(max_abs, float((a - b).reshape(n, -1)[d].abs().max()))
+    idx = torch.nonzero(rows).squeeze(1)
+    if idx.numel():
+        ties = fma_ties(call, idx)
+        if not bool(ties.all()):
+            raise RuntimeError(f"{what}: keygen_project differs by 1 ulp at gaussians "
+                               f"{idx[~ties].tolist()[:20]} without an _fma tie")
+    counts_call = (*call[:5], None, call[6])
+    counts = keygen_kernel.project_gaussians(*counts_call).counts
+    if not torch.equal(counts, keygen_kernel.project_gaussians_plain(*counts_call).counts):
+        raise RuntimeError(f"{what}: keygen_project's counts mode differs from its plain version")
+    return {"mismatch": {k: bad[k] for k in keygen_kernel.FLOAT_FIELDS},
+            "tie_gaussians": idx.tolist()[:20], "max_abs_err": max_abs,
+            "live": int(got.counts.sum())}
+
+
+def check_keygen(args, name: str, sh_modes=()) -> dict:
+    """K7 and K8 against their plain versions on the frame's own inputs
+    (the last frame's table, camera, config and thresholds; K8 on K1's
+    columns), K7 also in each SH mode of `sh_modes`; times and bounds."""
+    call = args["project_gaussians"][0]
+    table, view, proj, cam_pos, config, capacity, thr = call
+    n = table.num_gaussians
+    k7 = check_projection(call, f"{name} keygen_project")
+    modes = {}
+    for mode in sh_modes:
+        c = (*call[:4], dataclasses.replace(config, sh_mode=mode), *call[5:])
+        modes[mode.name] = check_projection(c, f"{name} keygen_project {mode.name}")["mismatch"]
+    counts_call = (*call[:5], None, thr)
+    k7.update({
+        "sh_modes": modes,
+        "ms": cuda_ms(lambda: keygen_kernel.project_gaussians(*call), 20),
+        "plain_ms": cuda_ms(lambda: keygen_kernel.project_gaussians_plain(*call), 1),
+        "library_ms": None,
+        "count_ms": cuda_ms(lambda: keygen_kernel.project_gaussians(*counts_call), 20),
+        "count_bound_ms": bound(KEYGEN_COUNT_BYTES * n, 0)["bound_ms"],
+        "device_ms": device_breakdown(lambda: keygen_kernel.project_gaussians(*call)),
+        # The thresholds are read once too, where the prefilter is on.
+        **bound((KEYGEN_READ_BYTES + KEYGEN_WRITE_BYTES) * n
+                + (8 * thr.numel() if thr is not None else 0), KEYGEN_FLOPS * n),
+    })
+
+    (cols, total, grid_w), _ = args["decode_slots"]
+    got = keygen_kernel.decode_slots(cols, total, grid_w)
+    want = keygen_kernel.decode_slots_plain(cols, total, grid_w)
+    for col, a, b in zip(("tile", "depth", "index", "count"), got, want):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{name}: decode_slots differs from its plain version in {col} at "
+                               f"{int((a != b).sum())} values")
+    e = cols.shape[1]
+    live = int(want[3])
+    k8 = {
+        "max_abs_err": 0,
+        "ms": cuda_ms(lambda: keygen_kernel.decode_slots(cols, total, grid_w), 20),
+        "plain_ms": cuda_ms(lambda: keygen_kernel.decode_slots_plain(cols, total, grid_w), 3),
+        "library_ms": None,
+        "device_ms": device_breakdown(lambda: keygen_kernel.decode_slots(cols, total, grid_w)),
+        # The live slots' six columns and the total read, three int64
+        # columns and the count written.
+        **bound(24 * live + 24 * e + 16, 0),
+    }
+    log(f"check {name} keygen: keygen_project == plain on {n} gaussians ({k7['live']} live, "
+        f"prefilter {'on' if thr is not None else 'off'}): counts, packed rows, extents, "
+        f"visible/keep bit for bit; floats (values differing, max ulp) {k7['mismatch']}, "
+        f"max |Δ| {k7['max_abs_err']:.3e}, _fma-tie gaussians {k7['tie_gaussians']}"
+        + "".join(f"; {m} {v}" for m, v in modes.items())
+        + f"; counts mode == plain; kernel {k7['ms']:.3f} ms vs plain {k7['plain_ms']:.3f} ms, "
+        f"counts mode {k7['count_ms']:.3f} ms (bound {k7['count_bound_ms']:.4f}), kernels "
+        f"{k7['device_ms']}, bound {k7['bound_ms']:.4f} ms ({k7['bound_by']}, "
+        f"{k7['bound_bytes']} B); decode_slots == plain bit for bit ({live} live of {e}), "
+        f"{k8['ms']:.3f} ms vs plain {k8['plain_ms']:.3f} ms, kernels {k8['device_ms']}, bound "
+        f"{k8['bound_ms']:.4f} ms ({k8['bound_bytes']} B)")
+    return {"keygen_project": k7, "decode_slots": k8}
+
+
+def check_keygen_ptxas() -> list[str]:
+    """ptxas on K7 and K8: no spills and no stack, or the run fails."""
+    entries = [" ".join(x) for x in ptxas_report()
+               if x[0].startswith(("keygen_project_kernel", "decode_slots_kernel"))]
+    if len(entries) != 3:
+        raise RuntimeError(f"ptxas reported {len(entries)} keygen kernels, not 3: {entries}")
+    for entry in entries:
+        if re.search(r"[1-9]\d* bytes (stack frame|spill)", entry):
+            raise RuntimeError(f"keygen kernel spills or uses a stack: {entry}")
+    log(f"check: ptxas on the keygen kernels, no spill and no stack: {' | '.join(entries)}")
+    return entries
+
+
 def timed_draws(renderer: Renderer, cam: Camera, base, frames: int, cap=None):
     """WARMUP_FRAMES + `frames` draws, the camera stepped 1e-3 in x a frame
     from `base`: (last FrameOutputs, ms of each timed frame, per-pass ms)."""
@@ -782,7 +974,7 @@ def run_bitonic(name: str, mult: float):
     drawn = WARMUP_FRAMES + BITONIC_FRAMES
     launches = read_counts()
     kernels = bitonic_kernel.PASSES
-    path = {k: launches[k] for k in ("expand_rows", "bitonic_sort", "blend_tiles")}
+    path = {k: launches[k] for k in (*UNCAPPED_PATH, "bitonic_sort")}
     if any(v != drawn for v in path.values()) or kernels != drawn * planned:
         raise RuntimeError(f"{name} bitonic: {drawn} frames launched {path}, {kernels} kernels "
                            f"({planned} a sort planned)")
@@ -927,9 +1119,10 @@ def run_capped(name: str, mult: float):
     tables = cap.counts.get("pack_feature_table", 0)
     if tables:
         raise RuntimeError(f"{name} capped: the capped frames built {tables} feature tables")
-    path_kernels = ["expand_rows", "blend_flat", "compact_slabs"]
+    path_kernels = ["keygen_project", "expand_rows", "decode_slots", "blend_flat",
+                    "compact_slabs"]
     if chained:
-        path_kernels.append("expand_rows_streamed")
+        path_kernels += ["expand_rows_streamed", "keygen_count"]
     if min(launches[k] for k in path_kernels) == 0:
         raise RuntimeError(f"{name} capped: a kernel of the path was not launched: {launches}")
     frame_ms = [s.elapsed_time(e) for s, e in events]
@@ -1114,6 +1307,13 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         "plain_ms": cuda_ms(lambda: compact_kernel.compact_segments_plain(src, src0, ep5), 3),
     }
 
+    # K7 and K8 on the prefiltered frame's own call (the live thresholds).
+    keygen_call = [c for c in cap.calls["project_gaussians"] if c[0][5] is not None][-1]
+    if keygen_call[0][6] is not None:
+        res["capped_keygen"] = check_keygen({"project_gaussians": keygen_call,
+                                             "decode_slots": cap.calls["decode_slots"][-1]},
+                                            f"{name} capped")
+
     # K1' under the prefilter.
     if cap.calls.get("expand_rows_streamed"):
         (cols, counts, capacity), _ = cap.calls["expand_rows_streamed"][-1]
@@ -1272,6 +1472,10 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
     }, f"{outdir}/rank{rank}.pt")
 
 
+# The kernels every rank of the distributed frame launches.
+DIST_KERNELS = ("keygen_project", "expand_rows", "decode_slots", "blend_strip")
+
+
 def run_dist(mult: float) -> dict:
     """The distributed phase: each run of DIST_RUNS spawns its ranks, which
     report back through files; their stats, launches, K4 checks and the
@@ -1302,7 +1506,7 @@ def run_dist(mult: float) -> dict:
             raise RuntimeError(f"{what}: elements lost in the exchange or the strip windows: {stats}")
         if recv.max() > 3 * max(recv.min(), 1):
             raise RuntimeError(f"{what}: the depth bands did not balance the ranks: {stats}")
-        for k in ("expand_rows", "blend_strip"):
+        for k in DIST_KERNELS:
             if min(r["launches"][k] for r in ranks) == 0:
                 raise RuntimeError(f"{what}: {k} was not launched on every rank")
         img = torch.cat([r["strip"] for r in ranks])[: config.height, : config.width]
@@ -1321,7 +1525,7 @@ def run_dist(mult: float) -> dict:
                         for p in DIST_PASSES)
             + f"; [live, sent, recv, dropped] per rank {stats.tolist()}; strip slots per phase "
             f"{[r['elements'] for r in ranks]}; launches per rank "
-            f"{[{k: r['launches'][k] for k in ('expand_rows', 'blend_strip')} for r in ranks]}")
+            f"{[{k: r['launches'][k] for k in DIST_KERNELS} for r in ranks]}")
         log(f"check {what}: blend_strip == plain on the {world} phases of every rank (colour bit "
             f"for bit; log T bit for bit where T >= the stop, both T below the stop elsewhere: "
             f"{sum(r['k4']['log_t_stopped_early'] for r in ranks)} pixels stopped before the "
@@ -1332,8 +1536,7 @@ def run_dist(mult: float) -> dict:
             f"frame float max |Δ| {float((img - ref).abs().max()):.3e}, 8-bit (max, share>1) per "
             f"channel {vs_ref}")
         out[(backend, world)] = {
-            "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("expand_rows",
-                                                                          "blend_strip")},
+            "launches": {k: sum(r["launches"][k] for r in ranks) for k in DIST_KERNELS},
             "blend_strip": {**k4, "max_abs_err": max(r["k4"]["max_abs_err"] for r in ranks)},
             "per_rank_frame": {k: statistics.mean(r["launches"][k] for r in ranks) / (warm + timed)
                                for k in COUNTERS},
@@ -1403,7 +1606,7 @@ def phase_app(mult: float) -> dict:
             torch.cuda.synchronize()
             cli_s = time.perf_counter() - t0
             launches = read_counts()
-            if rc != 0 or launches["expand_rows"] != APP_FRAMES or launches["blend_tiles"] != APP_FRAMES:
+            if rc != 0 or any(launches[k] != APP_FRAMES for k in UNCAPPED_PATH):
                 raise RuntimeError(f"app: the CLI returned {rc}, launches {launches}")
             got = image_io.read_png(png)
 
@@ -1419,7 +1622,7 @@ def phase_app(mult: float) -> dict:
             planned = bitonic_kernel.planned_passes(RenderConfig(width=width, height=height)
                                                     .sort_capacity(n))
             if rc != 0 or any(bitonic_launches[k] != APP_FRAMES for k in
-                              ("expand_rows", "bitonic_sort", "blend_tiles")) or (
+                              (*UNCAPPED_PATH, "bitonic_sort")) or (
                     bitonic_kernel.PASSES != APP_FRAMES * planned):
                 raise RuntimeError(f"app: the bitonic CLI returned {rc}, launches "
                                    f"{bitonic_launches}, {bitonic_kernel.PASSES} kernels")
@@ -1487,15 +1690,21 @@ META = {
                          "vk3dgaussiansplatting_tpu/ops/pallas/compact_kernel.py:212"),
     "blend_strip": ("vk3dgaussiansplatting_tpu_torch/csrc/blend_strip.cu",
                     "vk3dgaussiansplatting_tpu/ops/pallas/blend_kernel.py:808"),
-    # Not a TPU kernel: an XLA function of the JAX package.
+    # Not TPU kernels: XLA functions of the JAX package (NOT_TPU_KERNELS).
     "bitonic_sort": ("vk3dgaussiansplatting_tpu_torch/csrc/bitonic.cu",
                      "vk3dgaussiansplatting_tpu/ops/bitonic.py:38"),
+    "keygen_project": ("vk3dgaussiansplatting_tpu_torch/csrc/keygen.cu",
+                       "vk3dgaussiansplatting_tpu/ops/keygen.py:126"),
+    "decode_slots": ("vk3dgaussiansplatting_tpu_torch/csrc/keygen.cu",
+                     "vk3dgaussiansplatting_tpu/ops/keygen.py:126"),
 }
+NOT_TPU_KERNELS = ("bitonic_sort", "keygen_project", "decode_slots")
 
 
 def main() -> None:
     kind = phase_device()
     phase_build()
+    check_keygen_ptxas()
     phase_fixtures()
     check_expand_edge_cases()
 
@@ -1509,6 +1718,10 @@ def main() -> None:
         if i == 0:
             check_elements_vs_cpu(renderer, cam)
         results[name] = check_kernels(args, renderer.config, name, passes)
+        # The SH modes at train7k: the frame's own, then the other two.
+        results[name].update(check_keygen(
+            args, name, [m for m in SphericalHarmonicsMode if m != renderer.config.sh_mode]
+            if i == 0 else ()))
         for k, v in scene_launches.items():
             launches[k] += v
         del renderer, args
@@ -1522,7 +1735,8 @@ def main() -> None:
     for name in SCENES:
         renderer, cam, cap, out, path_launches, capped_frame = run_capped(name, mults[name])
         per_frame["capped_steady" if renderer._plan is not None else "capped_temporal"] = capped_frame
-        for k in ("expand_rows", "expand_rows_streamed", "blend_flat", "compact_slabs"):
+        for k in ("keygen_project", "keygen_count", "expand_rows", "expand_rows_streamed",
+                  "decode_slots", "blend_flat", "compact_slabs"):
             launches[k] += path_launches[k]
         results[name].update(check_capped(renderer, cam, cap, out, name))
         if renderer._plan is not None:
@@ -1561,6 +1775,7 @@ def main() -> None:
             "replaces": rep,
             "launches": launches[k],
             "on_path": k not in OFF_PATH,
+            "tpu_kernel": k not in NOT_TPU_KERNELS,
             "max_abs_err": max(r[k]["max_abs_err"] for r in results.values() if k in r),
             "ms": res["ms"],
             "plain_ms": res["plain_ms"],
@@ -1573,6 +1788,8 @@ def main() -> None:
         if k in OFF_PATH:
             entry["check_launches"] = sum(r[k]["check_launches"] for r in results.values()
                                           if k in r)
+        if k == "keygen_project":  # its counts mode (count_live_elements)
+            entry.update(count_launches=launches["keygen_count"], count_ms=res["count_ms"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -78,6 +78,13 @@ SIGNATURES = {
     "vk3d_bitonic_sort": (
         [_P, _P, _P, _I64, _P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I32, _P], ctypes.c_int,
     ),
+    # position, scale, rot, opacity, sh, n, params (host), thr, counts, cols
+    # (NULL: counts mode), color_alpha, cov2d, cov_inv, screen_pos, extents,
+    # flags, device, stream
+    "vk3d_keygen_project": ([_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I32, _P], ctypes.c_int),
+    # cols, e, total, grid_w, tile, depth, index, count, device, stream
+    "vk3d_decode_slots": ([_P, _I64, _P, _I64, _P, _P, _P, _P, _I32, _P], ctypes.c_int),
     "vk3d_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

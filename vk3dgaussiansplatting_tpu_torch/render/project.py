@@ -2,7 +2,11 @@
 
 Port of `vk3dgaussiansplatting_tpu.render.project` (the reference's GLSL in
 Common.glsl + InitSortList.comp).  All math is float32 elementwise tensor
-code; it runs unchanged on the CPU and on the GPU.
+code.  It is the plain version of keygen's per-gaussian kernel: keygen
+calls it (through `ops/cuda/keygen_kernel.project_gaussians_plain`) for
+tables on the CPU, and on the card runs K7 (csrc/keygen.cu), which
+computes these expressions with the same rounding, in one launch.  Nothing
+on the card falls back to this code.
 
 Integer results (depth keys, tile extents) must equal the JAX package's
 bit for bit, so the float expressions follow what XLA computes, not merely
