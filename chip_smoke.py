@@ -8,19 +8,27 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
 
   device   the card's name, and name + power limit from nvidia-smi
   build    the CUDA kernels compiled from csrc/, one nvcc per source, all
-           started together (seconds, ptxas report); K7 and K8 without a
-           spill or a stack, or the run fails
+           started together (seconds, ptxas report); K7, K8 and the radix
+           sort's kernels without a spill or a stack, or the run fails
   fixture  the fixture scenes on the card (kernels) against the CPU (plain
            versions): element counts equal, 8-bit ±1 per channel
   check    K1 against its plain version bit for bit on edge cases (zero
            counts, a 12,000-slot gaussian, 1.1M zero counts in a row,
-           total > E, E % 4 != 0, N = 0)
+           total > E, E % 4 != 0, N = 0); the radix sort against its plain
+           version and the stable torch.sort bit for bit on edge cases (a
+           4096-tile config, count 0 and E, slots past the count not
+           SENTINEL, sentinels between live slots with the permutation, E
+           not a multiple of the block, all-equal keys, depth keys near
+           2^32 - 1, a 49-bit key), its input unchanged
   scene    train7k_720p: the benchmark stand-in cloud (559,263 gaussians,
            1280x720, capacity 4,245,663), scale calibrated to 3,487,911 live
            elements ±3% (K7's counts mode); 3 warm-up + 20 timed frames with
            the camera nudged each frame; median ms/frame and per-pass ms from
-           CUDA events; K7, K1, K8 and K2 launch once a frame, and no feature
-           table is built
+           CUDA events; K7, K1, K8, the radix sort and K2 launch once a
+           frame, the radix sort's kernels (radix_kernel.PASSES) are its
+           planned_kernels a sort, no feature table is built, and the
+           warm-up frames call no torch.sort or argsort (a
+           TorchFunctionMode counts them)
   check    on that scene's last frame: keygen/sort/ranges on the card ==
            on the CPU bit for bit; K1 == its plain version bit for bit; K2
            (blend_tiles on the frame's own GaussianFrameData) vs its plain
@@ -35,7 +43,13 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            of the plain version (`fma_ties`); its counts mode bit for bit;
            K8 decode_slots against decode_slots_plain on K1's columns bit for
            bit; their times, plain times and bounds (K7 316 B a gaussian,
-           K8 24 B a live slot + 24 B a slot)
+           K8 24 B a live slot + 24 B a slot).  The radix sort on the
+           frame's own keygen output against its plain version and the
+           stable torch.sort it replaced, bit for bit, its input unchanged;
+           its time, the plain version's, torch.sort's (library_ms), its
+           kernels by kind from the profiler, the bound (24 B a live slot
+           read + 24 B a slot written) and the passes' floor (the bytes its
+           passes move: 196 B a live slot at 6 passes)
   scene    garden30k_1080p: 5,834,784 gaussians at 1920x1080, capacity
            14,190,624, calibrated to 13,098,506 live ±3%; 3 warm-up + 10
            timed frames; the same checks of K1 and K2
@@ -45,10 +59,12 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            then the same camera path through an AUTO renderer of the same
            capacity; ms/frame and the sort section of both; on the last
            frame's own keygen output the kernel == sort_elements_xla == the
-           plain version on the card, bit for bit on tile, depth and index,
-           its input unchanged, the planned number of kernels a sort
-           (bitonic_kernel.planned_passes); the frame's image_u8 == the AUTO
-           frame's bit for bit; the kernel's, plain, torch.sort times, the
+           plain version == the stable torch.sort on the card, bit for bit on
+           tile, depth and index, its input unchanged, the planned number of
+           kernels a sort (bitonic_kernel.planned_passes), the radix sort
+           launched no time on the path; the frame's image_u8 == the AUTO
+           frame's bit for bit; the kernel's, plain, torch.sort times (the
+           one-liner the AUTO sort replaced, as library_ms), the
            bound (48 B a slot) and the network's floor (its passes x 24 B a
            slot); the kernel by kind from the profiler (fused global
            passes, first sort, merges, last merge); four global distances a
@@ -64,7 +80,10 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            in the JAX benchmark); ms/frame, per-pass ms, live elements
            before and after the switch, fast/patch/full frame counts, the ok
            flags, host synchronisations per frame (torch's sync debug mode);
-           no capped frame may build a feature table (pack_feature_table)
+           no capped frame may build a feature table (pack_feature_table),
+           the radix sort launches once a timed frame with its planned
+           kernels a sort, and the warm-up
+           frames (the steady switch included) call no torch.sort
   check    on each capped scene's last frame: K3 (reading the frame data by
            id) against its plain version on pack_feature_table's rows, image
            and T bit for bit (the tiles' validity and the next caps,
@@ -76,7 +95,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            layout's gid; the unmasked compact_runs and K6 (on the slabs'
            chunk offsets, with its kernel's profiler time) on every lane,
            K1' (garden) bit-exact; K7 and K8 as above on garden's
-           prefiltered frame, with its live thresholds; the capped
+           prefiltered frame, with its live thresholds; the radix sort on
+           the last frame's list as above; the capped
            image against the uncapped K2 frame of the same camera within
            ±1 8-bit on r, g and b; ok true on the last timed frame
   app      the app path at garden30k_1080p's size and calibrated scale:
@@ -84,10 +104,13 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            load_gaussians through the native parser (ply_load_s, the
            parser from its log line), its table bit for bit with the numpy
            parser's; the CLI on the card (--ply, 1920x1080, 3 frames, --out:
-           K7, K1, K8 and K2 once a frame), its PNG read back with the port's
+           K7, K1, K8, the radix sort and K2 once a frame, the sort's
+           planned kernels each time), its PNG read
+           back with the port's
            read_png bit for bit with Renderer.draw on the same table and
            camera; the CLI again with --sort bitonic, its PNG bit for bit
-           with the first (the bitonic kernel once a frame); the .ply fixture rendered as tests/test_ply_fixture.py
+           with the first (the bitonic kernel once a frame, the radix sort
+           never); the .ply fixture rendered as tests/test_ply_fixture.py
            does, within ±1 8-bit of tests/golden/ply_fixture.png
   motion   garden's chained plan for 10 more frames at camera step 1e-3,
            recorded (mode, live, ok, unfixable tiles), not checked
@@ -104,8 +127,12 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            version on every phase of every rank's last frame
            (`blend_kernel.strip_mismatch`: colour bit for bit; K4 stops
            each pixel at T < stop, so log T bit for bit where the plain
-           T >= stop, both T below the stop elsewhere); the assembled image within ±1 8-bit per channel of the
-           uncapped single-device frame of the same camera
+           T >= stop, both T below the stop elsewhere); the radix sort
+           (_sort3's, every slot, with the permutation) once a frame on
+           every rank with its planned kernels (no setup), on each rank's last received list against its
+           plain version and the stable torch.sort bit for bit; the
+           assembled image within ±1 8-bit per channel of the uncapped
+           single-device frame of the same camera
   launches each path's kernels launched during its frames (counts set to 0
            just before the path, read just after; the distributed path's
            summed over ranks); K6, which no path runs, reports 0 path
@@ -128,6 +155,7 @@ launches per frame on each path, and last {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import linecache
@@ -158,6 +186,7 @@ from vk3dgaussiansplatting_tpu_torch.ops import capped as capped_ops
 from vk3dgaussiansplatting_tpu_torch.ops import keygen, ranges, sort
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import (
     _build, bitonic_kernel, blend_kernel, compact_kernel, expand_kernel, keygen_kernel,
+    radix_kernel,
 )
 from vk3dgaussiansplatting_tpu_torch.parallel import dist, mesh, multihost
 from vk3dgaussiansplatting_tpu_torch.pipeline import Renderer, render_frame
@@ -248,16 +277,45 @@ COUNTERS = {
     # K7 in its counts mode (count_live_elements): the steady switch's probe.
     "keygen_count": (keygen_kernel, "COUNT_LAUNCHES"),
     "decode_slots": (keygen_kernel, "DECODE_LAUNCHES"),
+    "radix_sort": (radix_kernel, "LAUNCHES"),
 }
+
+
+# The kernels the sorts' launches ran (their wrappers' PASSES).
+KERNEL_COUNTERS = {"bitonic_sort": bitonic_kernel, "radix_sort": radix_kernel}
 
 
 def reset_counts() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+    for mod in KERNEL_COUNTERS.values():
+        mod.PASSES = 0
 
 
 def read_counts() -> dict:
     return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
+
+
+def read_kernels() -> dict:
+    return {k: mod.PASSES for k, mod in KERNEL_COUNTERS.items()}
+
+
+def call_plan(call) -> tuple[int, bool]:
+    """(num_tiles, counted) of a captured radix_sort call."""
+    (_tile, _depth, _index, count, num_tiles), _kw = call
+    return num_tiles, count is not None
+
+
+def check_radix_kernels(what: str, plan: tuple[int, bool], sorts: int, kernels: int) -> float:
+    """The radix sort's kernels on a path, `kernels` over `sorts` launches,
+    against its plan (radix_kernel.planned_kernels for `plan`, the
+    num_tiles and whether a count bounds the sort).  Returns the kernels a
+    sort."""
+    planned = radix_kernel.planned_kernels(*plan)
+    if not sorts or kernels != sorts * planned:
+        raise RuntimeError(f"{what}: {sorts} radix sorts launched {kernels} kernels, "
+                           f"not {planned} a sort")
+    return kernels / sorts
 
 
 def log(msg: str) -> None:
@@ -366,6 +424,7 @@ class Capture:
         (bitonic_ops, "sort_elements_bitonic"),
         (keygen_kernel, "project_gaussians"),
         (keygen_kernel, "decode_slots"),
+        (radix_kernel, "radix_sort"),
     )
 
     def __init__(self):
@@ -612,8 +671,24 @@ def phase_fixtures() -> None:
             f"8-bit max |Δ| {int(d.max())}")
 
 
-# The kernels the uncapped frame launches once each.
-UNCAPPED_PATH = ("keygen_project", "expand_rows", "decode_slots", "blend_tiles")
+# The kernels the uncapped frame launches once each; the bitonic path's.
+UNCAPPED_PATH = ("keygen_project", "expand_rows", "decode_slots", "radix_sort", "blend_tiles")
+BITONIC_PATH = tuple(k for k in UNCAPPED_PATH if k != "radix_sort") + ("bitonic_sort",)
+
+
+class SortCalls(torch.overrides.TorchFunctionMode):
+    """Counts the torch.sort and argsort calls made while it is active."""
+
+    SORTS = (torch.sort, torch.Tensor.sort, torch.argsort, torch.Tensor.argsort, torch.msort)
+
+    def __init__(self):
+        super().__init__()
+        self.calls = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self.SORTS:
+            self.calls += 1
+        return func(*args, **(kwargs or {}))
 
 
 def run_scene(name: str):
@@ -629,6 +704,7 @@ def run_scene(name: str):
     reset_counts()
     timer = CudaPassTimer()
     frame_ms = []
+    sorts = SortCalls()
     with Capture() as cap:
         for i in range(WARMUP_FRAMES + frames):
             cap.new_frame()
@@ -636,7 +712,9 @@ def run_scene(name: str):
             t = timer if i >= WARMUP_FRAMES else None
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            out = renderer.draw(cam, timer=t)
+            # The warm-up frames under the sort counter (it costs host time).
+            with sorts if t is None else contextlib.nullcontext():
+                out = renderer.draw(cam, timer=t)
             end.record()
             if t is not None:
                 frame_ms.append((start, end))
@@ -644,9 +722,14 @@ def run_scene(name: str):
     drawn = WARMUP_FRAMES + frames
     counts = read_counts()
     launches = {k: v for k, v in counts.items() if k in UNCAPPED_PATH}
+    radix_kernels = check_radix_kernels(name, call_plan(cap.args["radix_sort"]),
+                                        counts["radix_sort"], read_kernels()["radix_sort"])
     if any(v != drawn for v in launches.values()):
-        raise RuntimeError(f"{name}: K7, K1, K8 and K2 must launch once a frame, {drawn} frames: "
-                           f"{launches}")
+        raise RuntimeError(f"{name}: K7, K1, K8, the radix sort and K2 must launch once a frame, "
+                           f"{drawn} frames: {launches}")
+    if sorts.calls:
+        raise RuntimeError(f"{name}: {sorts.calls} torch.sort/argsort calls in "
+                           f"{WARMUP_FRAMES} uncapped frames")
     tables = cap.counts.get("pack_feature_table", 0)
     if tables:
         raise RuntimeError(f"{name}: the uncapped frame built {tables} feature tables")
@@ -661,9 +744,10 @@ def run_scene(name: str):
         f"ms/frame median {statistics.median(frame_ms):.3f} "
         f"(min {min(frame_ms):.3f}, max {max(frame_ms):.3f}, {frames} frames); per pass ms "
         + ", ".join(f"{k} {passes[k]:.3f}" for k in ("keygen", "expand", "sort", "ranges", "blend"))
-        + f"; launches {launches}; feature tables built {tables}")
+        + f"; launches {launches}, {radix_kernels:g} kernels a radix sort; feature tables built "
+        f"{tables}; torch.sort/argsort calls in the {WARMUP_FRAMES} warm-up frames {sorts.calls}")
     per_frame = {k: v / drawn for k, v in counts.items()}
-    return renderer, cam, cap.args, launches, mult, per_frame, passes
+    return renderer, cam, cap.args, launches, mult, per_frame, passes, radix_kernels
 
 
 def check_elements_vs_cpu(renderer: Renderer, cam: Camera) -> None:
@@ -723,6 +807,148 @@ def check_expand_edge_cases() -> None:
             raise RuntimeError(f"expand_rows edge case (n={n}, capacity={capacity}) differs")
     log(f"check: expand_rows bit-exact on {len(cases)} edge cases (a 12,000-slot gaussian, "
         f"1.1M zero counts, E % 4 != 0, total > E, N = 0)")
+
+
+def torch_sort_elements(el, num_tiles: int, with_perm: bool = False):
+    """The stable int64-key torch.sort that the AUTO sort replaced: the
+    radix sort's library yardstick (library_ms) and a reference here; no
+    module of the port calls it."""
+    tile = torch.where(el.tile == SENTINEL, num_tiles, el.tile)
+    key, perm = torch.sort((tile << 32) | el.depth, stable=True)
+    t = key >> 32
+    out = keygen.SortElements(torch.where(t == num_tiles, SENTINEL, t), key & 0xFFFFFFFF,
+                              el.index[perm], el.count)
+    return (out, perm) if with_perm else out
+
+
+def radix_floor_bytes(n: int, e: int, passes: int, counted: bool, with_perm: bool) -> int:
+    """The bytes csrc/radix.cu's passes move for n sorted slots of e: the
+    setup reads and writes the tail's three columns (and its permutation);
+    a histogram reads the digit's column (the first the int64 depth); a
+    scatter reads and writes the 12-byte records (the first reads the int64
+    columns, the index only without the permutation; the last writes the
+    int64 columns and the permutation, whose index it gathers)."""
+    tail = (48 + 8 * with_perm) * (e - n) if counted else 0
+    hist = 8 * n + 4 * n * (passes - 1)
+    scatter = ((16 if with_perm else 24) + 12) * n + 24 * n * (passes - 2) + 36 * n
+    return tail + hist + scatter + 16 * n * with_perm
+
+
+def check_radix(call, what: str, timed: bool = True) -> dict:
+    """The radix sort on one call's own inputs against its plain version
+    and the stable torch.sort, bit for bit (the permutation too), its input
+    unchanged; with `timed`, its times and bounds."""
+    (tile, depth, index, count, num_tiles), kw = call
+    with_perm = kw.get("with_perm", False)
+    el = keygen.SortElements(tile, depth, index, count)
+    before = [x.clone() for x in el[:3]]
+    kernels = radix_kernel.PASSES
+    got = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
+    kernels = check_radix_kernels(what, call_plan(call), 1, radix_kernel.PASSES - kernels)
+    refs = {"plain version": sort.sort_elements_radix_plain(el, num_tiles, with_perm=with_perm),
+            "stable torch.sort": torch_sort_elements(el, num_tiles, with_perm)}
+    for ref_name, ref in refs.items():
+        ref_cols = [*ref[0][:3], ref[1]] if with_perm else list(ref[:3])
+        for col, a, b in zip(("tile", "depth", "index", "permutation"), got, ref_cols):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"{what}: radix_sort differs from the {ref_name} in {col} at "
+                                   f"{int((a != b).sum())} of {a.numel()} slots")
+    plain = refs["plain version"]
+    plain_cols = [*plain[0][:3], plain[1]] if with_perm else list(plain[:3])
+    err = max((int((a - b).abs().max()) for a, b in zip(got, plain_cols) if a.numel()), default=0)
+    if not all(torch.equal(a, b) for a, b in zip(before, el[:3])):
+        raise RuntimeError(f"{what}: radix_sort wrote its input")
+    e = tile.shape[0]
+    n = e if count is None else min(max(int(count), 0), e)
+    res = {"max_abs_err": err, "e": e, "live": n, "with_perm": with_perm}
+    if not timed:
+        return res
+    passes = len(radix_kernel.schedule(num_tiles))
+
+    def run():
+        return radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
+
+    res.update({
+        "ms": cuda_ms(run, 20),
+        "plain_ms": cuda_ms(lambda: sort.sort_elements_radix_plain(el, num_tiles,
+                                                                   with_perm=with_perm), 1),
+        "library_ms": cuda_ms(lambda: torch_sort_elements(el, num_tiles, with_perm), 10),
+        "device_ms": device_kinds(run, {"setup": r"radix_setup", "histogram": r"radix_histogram",
+                                        "scan": r"radix_scan", "scatter": r"radix_scatter"}),
+        "digit_passes": passes,
+        # The function: 24 B a live slot read, 24 B a slot written (and the
+        # permutation's 8), the count.
+        **bound(24 * n + (32 if with_perm else 24) * e + 8, 0),
+        "passes_floor_ms": radix_floor_bytes(n, e, passes, count is not None, with_perm)
+        / PEAK_BYTES_PER_S * 1e3,
+    })
+    log(f"check {what} radix: radix_sort == plain == stable torch.sort bit for bit ({n} sorted "
+        f"of {e} slots, {passes} digit passes, {kernels:g} kernels"
+        f"{', with the permutation' if with_perm else ''}), its input unchanged; kernel "
+        f"{res['ms']:.3f} ms vs plain {res['plain_ms']:.3f} ms, torch.sort "
+        f"{res['library_ms']:.3f} ms; by kind {res['device_ms']}; bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}, {res['bound_bytes']} B), the passes' floor "
+        f"{res['passes_floor_ms']:.4f} ms")
+    return res
+
+
+def check_radix_edge_cases() -> None:
+    """The radix sort on lists built to hit its edges, against its plain
+    version and the stable torch.sort (`check_radix`)."""
+    rng = np.random.default_rng(9)
+    tile_size = radix_kernel.TILE
+    top = (1 << 32) - 1
+
+    def keygen_list(num_tiles, e, live, tile=None, depth=None):
+        cols = [np.full(e, SENTINEL, np.int64) for _ in range(3)]
+        cols[0][:live] = rng.integers(0, num_tiles, live) if tile is None else tile
+        cols[1][:live] = rng.integers(0, 1 << 32, live) if depth is None else depth
+        cols[2][:live] = np.arange(live)
+        return cols
+
+    def interleave(cols, share):
+        dead = rng.random(cols[0].shape[0]) < share
+        for c in cols:
+            c[dead] = SENTINEL
+        return cols, int((~dead).sum())
+
+    e = 3 * tile_size + 5
+    inter, inter_live = interleave(keygen_list(8160, 70_001, 70_001), 0.3)
+    past, past_live = interleave(keygen_list(8160, 50_000, 50_000), 0.3)
+    cases = {  # what: (num_tiles, columns, count or None, with_perm)
+        "4096 tiles": (4096, keygen_list(4096, e, 5000), 5000, False),
+        "count 0": (8160, keygen_list(8160, 10_000, 0), 0, False),
+        "count E": (8160, keygen_list(8160, 20_001, 20_001), 20_001, False),
+        "sentinels between live slots, every slot": (8160, inter, None, True),
+        "slots past the count not SENTINEL": (8160, past, past_live, False),
+        "E = 1": (3600, keygen_list(3600, 1, 1), 1, False),
+        "E = the block": (3600, keygen_list(3600, tile_size, tile_size), tile_size, True),
+        "all-equal keys": (8160, keygen_list(8160, e, e - 3, tile=8159, depth=77), e - 3, False),
+        "depth near 2^32 - 1": (3600, keygen_list(3600, e, e,
+                                                  depth=rng.integers(top - 40, top + 1, e)),
+                                e, False),
+        "49-bit key": (70_000, keygen_list(70_000, e, 9000), 9000, False),
+    }
+    for what, (num_tiles, cols, count, with_perm) in cases.items():
+        t = [torch.from_numpy(c).cuda() for c in cols]
+        c = None if count is None else torch.tensor(count, device="cuda")
+        check_radix(((*t, c, num_tiles), {"with_perm": with_perm}), f"radix edge case {what}",
+                    timed=False)
+    log(f"check: radix_sort == plain == stable torch.sort bit for bit on {len(cases)} edge cases "
+        f"({', '.join(cases)}; interleaved: {inter_live} live of 70,001), inputs unchanged")
+
+
+def check_radix_ptxas() -> list[str]:
+    """ptxas on the radix sort's kernels: no spills and no stack, or the run
+    fails."""
+    entries = [" ".join(x) for x in ptxas_report() if x[0].startswith("radix_")]
+    if len(entries) != 7:
+        raise RuntimeError(f"ptxas reported {len(entries)} radix kernels, not 7: {entries}")
+    for entry in entries:
+        if re.search(r"[1-9]\d* bytes (stack frame|spill)", entry):
+            raise RuntimeError(f"radix kernel spills or uses a stack: {entry}")
+    log(f"check: ptxas on the radix kernels, no spill and no stack: {' | '.join(entries)}")
+    return entries
 
 
 def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
@@ -968,24 +1194,27 @@ def run_bitonic(name: str, mult: float):
     planned = bitonic_kernel.planned_passes(e)
     base = cam.position.copy()
     reset_counts()
-    bitonic_kernel.PASSES = 0
     with Capture() as cap:
         out, frame_ms, passes = timed_draws(renderer, cam, base, BITONIC_FRAMES, cap)
     drawn = WARMUP_FRAMES + BITONIC_FRAMES
     launches = read_counts()
-    kernels = bitonic_kernel.PASSES
-    path = {k: launches[k] for k in (*UNCAPPED_PATH, "bitonic_sort")}
-    if any(v != drawn for v in path.values()) or kernels != drawn * planned:
-        raise RuntimeError(f"{name} bitonic: {drawn} frames launched {path}, {kernels} kernels "
-                           f"({planned} a sort planned)")
+    kernels = read_kernels()
+    path = {k: launches[k] for k in BITONIC_PATH}
+    if (any(v != drawn for v in path.values()) or kernels["bitonic_sort"] != drawn * planned
+            or launches["radix_sort"] or kernels["radix_sort"]):
+        raise RuntimeError(f"{name} bitonic: {drawn} frames launched {path}, kernels {kernels} "
+                           f"({planned} a bitonic sort planned), radix_sort "
+                           f"{launches['radix_sort']}")
     check_image(out.image, config, f"{name} bitonic")
 
-    # The last frame's own keygen output: the kernel against the stable
-    # tier and the plain version, bit for bit; its input unchanged.
+    # The last frame's own keygen output: the kernel against the AUTO sort
+    # (the radix kernel), the stable torch.sort and the plain version, bit
+    # for bit; its input unchanged.
     (el,), _ = cap.args["sort_elements_bitonic"]
     before = [x.clone() for x in el[:3]]
     got = bitonic_ops.sort_elements_bitonic(el)
     refs = {"sort_elements_xla": sort.sort_elements_xla(el, config.num_tiles),
+            "stable torch.sort": torch_sort_elements(el, config.num_tiles),
             "plain version": bitonic_ops.sort_elements_bitonic_plain(el)}
     for ref_name, ref in refs.items():
         for col in ("tile", "depth", "index"):
@@ -1013,7 +1242,7 @@ def run_bitonic(name: str, mult: float):
                            for c in ("tile", "depth", "index")),
         "ms": cuda_ms(lambda: bitonic_ops.sort_elements_bitonic(el), 10),
         "plain_ms": cuda_ms(lambda: bitonic_ops.sort_elements_bitonic_plain(el), 1),
-        "library_ms": cuda_ms(lambda: sort.sort_elements_xla(el, config.num_tiles), 10),
+        "library_ms": cuda_ms(lambda: torch_sort_elements(el, config.num_tiles), 10),
         # The kernel by kind, from the profiler: ms and kernels a sort.
         "device_ms": device_kinds(lambda: bitonic_ops.sort_elements_bitonic(el), {
             "fused global passes": r"bitonic_global_kernel",
@@ -1030,14 +1259,15 @@ def run_bitonic(name: str, mult: float):
         f"{statistics.median(frame_ms):.3f} (min {min(frame_ms):.3f}, max {max(frame_ms):.3f}, "
         f"{BITONIC_FRAMES} frames); per pass ms "
         + ", ".join(f"{k} {passes[k]:.3f}" for k in ("keygen", "expand", "sort", "ranges", "blend"))
-        + f"; launches {path}, {kernels} kernels ({planned} a sort, block "
+        + f"; launches {path}, {kernels['bitonic_sort']} kernels ({planned} a sort, block "
         f"{bitonic_kernel.BLOCK}); the AUTO renderer at the same capacity: ms/frame median "
         f"{statistics.median(auto_ms):.3f} (min {min(auto_ms):.3f}, max {max(auto_ms):.3f}), sort "
         f"{auto_passes['sort']:.3f}")
-    log(f"check {name} bitonic: bitonic_sort == sort_elements_xla == the plain version on the "
-        f"card, bit for bit on tile, depth and index ({e} slots), its input unchanged; image_u8 "
-        f"== the AUTO frame's bit for bit; kernel {res['ms']:.3f} ms vs plain "
-        f"{res['plain_ms']:.3f} ms, torch.sort (sort_elements_xla) {res['library_ms']:.3f} ms; "
+    log(f"check {name} bitonic: bitonic_sort == sort_elements_xla (the radix sort) == the stable "
+        f"torch.sort == the plain version on the card, bit for bit on tile, depth and index "
+        f"({e} slots), its input unchanged; image_u8 == the AUTO frame's bit for bit; kernel "
+        f"{res['ms']:.3f} ms vs plain {res['plain_ms']:.3f} ms, torch.sort "
+        f"{res['library_ms']:.3f} ms; "
         f"bound {res['bound_ms']:.4f} ms (48 B a slot, {res['bound_by']}), the network's floor "
         f"{res['network_floor_ms']:.3f} ms ({planned} kernels x 24 B a slot); by kind "
         f"{res['device_ms']}; ptxas {' | '.join(ptxas)}")
@@ -1085,12 +1315,14 @@ def run_capped(name: str, mult: float):
 
     reset_counts()
     live_before = None
+    sorts = SortCalls()
     with Capture() as cap:
         for i in range(warm):
             if chained and i == warm - 1:  # this draw takes the steady switch
                 live_before = int(plan.last_count)
             cap.new_frame()
-            out = draw()
+            with sorts:
+                out = draw()
             if chained:
                 log(f"  {name} warm-up {i}: mode {plan.mode}, live {int(out.num_elements)}, "
                     f"ok {bool(out.ok)}, stats (n_invalid, fits, packed, n_grow, n_unfix) "
@@ -1116,15 +1348,21 @@ def run_capped(name: str, mult: float):
         torch.cuda.synchronize()
     launches = read_counts()
     per_frame = {k: (launches[k] - before[k]) / frames for k in launches}
+    check_radix_kernels(f"{name} capped", call_plan(cap.args["radix_sort"]),
+                        launches["radix_sort"], read_kernels()["radix_sort"])
     tables = cap.counts.get("pack_feature_table", 0)
     if tables:
         raise RuntimeError(f"{name} capped: the capped frames built {tables} feature tables")
-    path_kernels = ["keygen_project", "expand_rows", "decode_slots", "blend_flat",
+    path_kernels = ["keygen_project", "expand_rows", "decode_slots", "radix_sort", "blend_flat",
                     "compact_slabs"]
     if chained:
         path_kernels += ["expand_rows_streamed", "keygen_count"]
-    if min(launches[k] for k in path_kernels) == 0:
-        raise RuntimeError(f"{name} capped: a kernel of the path was not launched: {launches}")
+    if min(launches[k] for k in path_kernels) == 0 or per_frame["radix_sort"] != 1:
+        raise RuntimeError(f"{name} capped: a kernel of the path was not launched, or the radix "
+                           f"sort not once a timed frame: {launches}, per timed frame {per_frame}")
+    if sorts.calls:
+        raise RuntimeError(f"{name} capped: {sorts.calls} torch.sort/argsort calls in {warm} "
+                           f"warm-up frames")
     frame_ms = [s.elapsed_time(e) for s, e in events]
     passes = timer.summary()
     oks = [bool(o) for o in oks]
@@ -1142,7 +1380,9 @@ def run_capped(name: str, mult: float):
         f"max {max(frame_ms):.3f}, {frames} frames); per pass ms "
         + ", ".join(f"{k} {passes[k]:.3f}" for k in
                     ("keygen", "expand", "sort", "ranges", "layout", "blend", "policy", "patch"))
-        + f"; feature tables built {tables}; frames fast/patch/full {dict(capped_ops.PATH_COUNTS)}; ok {oks}; host syncs per "
+        + f"; feature tables built {tables}; torch.sort/argsort calls in the {warm} warm-up "
+        f"frames {sorts.calls}; frames fast/patch/full {dict(capped_ops.PATH_COUNTS)}; ok {oks}; "
+        f"host syncs per "
         f"frame {syncs / SYNC_FRAMES:g} {sync_lines}; launches {launches}; per timed frame "
         f"{per_frame}")
     return renderer, cam, cap, out, launches, per_frame
@@ -1314,6 +1554,9 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
                                              "decode_slots": cap.calls["decode_slots"][-1]},
                                             f"{name} capped")
 
+    # The radix sort on the last frame's list.
+    res["capped_radix"] = check_radix(cap.args["radix_sort"], f"{name} capped")
+
     # K1' under the prefilter.
     if cap.calls.get("expand_rows_streamed"):
         (cols, counts, capacity), _ = cap.calls["expand_rows_streamed"][-1]
@@ -1418,6 +1661,8 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
                 events.append((start, end))
         torch.cuda.synchronize()
     launches = read_counts()
+    radix_kernels = check_radix_kernels(f"rank {rank}", call_plan(cap.args["radix_sort"]),
+                                        launches["radix_sort"], read_kernels()["radix_sort"])
     passes = {k: v / timed for k, v in timer.totals().items()}
 
     # K4 on each phase's own inputs (launches here are not the path's).
@@ -1435,6 +1680,8 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
         err = max(err, float((got[0] - want[0]).abs().max()))
         stopped_early += int((got[1] != want[1]).sum())
     k4 = {"max_abs_err": err, "log_t_stopped_early": stopped_early}
+    # The radix sort on the last frame's received list (_sort3's call).
+    radix = check_radix(cap.args["radix_sort"], f"rank {rank}", timed=False)
     tdist.barrier()
     if rank == 0:  # timed while the other ranks wait, so the card is this rank's
         k4["ms"] = statistics.mean(
@@ -1466,6 +1713,7 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
         "passes": passes,
         "launches": launches,
         "k4": k4,
+        "radix": {**radix, "kernels_per_sort": radix_kernels},
         "host_staged": comm.host_staged,
         "plan": tuple(plan),
         "elements": [int((a[2][:, 1] - a[2][:, 0]).clamp(min=0).sum()) for a, _k in phases],
@@ -1473,7 +1721,7 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
 
 
 # The kernels every rank of the distributed frame launches.
-DIST_KERNELS = ("keygen_project", "expand_rows", "decode_slots", "blend_strip")
+DIST_KERNELS = ("keygen_project", "expand_rows", "decode_slots", "radix_sort", "blend_strip")
 
 
 def run_dist(mult: float) -> dict:
@@ -1509,6 +1757,9 @@ def run_dist(mult: float) -> dict:
         for k in DIST_KERNELS:
             if min(r["launches"][k] for r in ranks) == 0:
                 raise RuntimeError(f"{what}: {k} was not launched on every rank")
+        if any(r["launches"]["radix_sort"] != warm + timed for r in ranks):
+            raise RuntimeError(f"{what}: the radix sort must launch once a frame on every rank: "
+                               f"{[r['launches']['radix_sort'] for r in ranks]}")
         img = torch.cat([r["strip"] for r in ranks])[: config.height, : config.width]
         check_image(img, config, what)
         vs_ref = u8_compare(img, ref)
@@ -1529,8 +1780,12 @@ def run_dist(mult: float) -> dict:
         log(f"check {what}: blend_strip == plain on the {world} phases of every rank (colour bit "
             f"for bit; log T bit for bit where T >= the stop, both T below the stop elsewhere: "
             f"{sum(r['k4']['log_t_stopped_early'] for r in ranks)} pixels stopped before the "
-            f"plain version's batch end), kernel {k4['ms']:.3f} ms vs plain "
-            f"{k4['plain_ms']:.3f} ms, bound {k4['bound_ms']:.4f} ms with P ({k4['bound_by']}), "
+            f"plain version's batch end); radix_sort (every slot, with the permutation) == plain "
+            f"== stable torch.sort bit for bit on every rank's last list "
+            f"({[r['radix']['e'] for r in ranks]} slots; "
+            f"{[r['radix']['kernels_per_sort'] for r in ranks]} kernels a sort); K4 kernel "
+            f"{k4['ms']:.3f} ms vs plain {k4['plain_ms']:.3f} ms, bound {k4['bound_ms']:.4f} ms "
+            f"with P ({k4['bound_by']}), "
             f"{k4['bound_ms_batch']:.4f} with P_batch (mean per phase, rank 0 alone on the card); "
             f"image vs the single-device uncapped "
             f"frame float max |Δ| {float((img - ref).abs().max()):.3e}, 8-bit (max, share>1) per "
@@ -1608,6 +1863,9 @@ def phase_app(mult: float) -> dict:
             launches = read_counts()
             if rc != 0 or any(launches[k] != APP_FRAMES for k in UNCAPPED_PATH):
                 raise RuntimeError(f"app: the CLI returned {rc}, launches {launches}")
+            # The CLI's uncapped frame sorts the count's prefix.
+            check_radix_kernels("app", (RenderConfig(width=width, height=height).num_tiles, True),
+                                launches["radix_sort"], read_kernels()["radix_sort"])
             got = image_io.read_png(png)
 
             # The CLI again with the bitonic tier: the same PNG.
@@ -1621,9 +1879,9 @@ def phase_app(mult: float) -> dict:
             bitonic_launches = read_counts()
             planned = bitonic_kernel.planned_passes(RenderConfig(width=width, height=height)
                                                     .sort_capacity(n))
-            if rc != 0 or any(bitonic_launches[k] != APP_FRAMES for k in
-                              (*UNCAPPED_PATH, "bitonic_sort")) or (
-                    bitonic_kernel.PASSES != APP_FRAMES * planned):
+            if rc != 0 or any(bitonic_launches[k] != APP_FRAMES for k in BITONIC_PATH) or (
+                    bitonic_kernel.PASSES != APP_FRAMES * planned
+                    or bitonic_launches["radix_sort"]):
                 raise RuntimeError(f"app: the bitonic CLI returned {rc}, launches "
                                    f"{bitonic_launches}, {bitonic_kernel.PASSES} kernels")
             got_bitonic = image_io.read_png(png)
@@ -1697,24 +1955,29 @@ META = {
                        "vk3dgaussiansplatting_tpu/ops/keygen.py:126"),
     "decode_slots": ("vk3dgaussiansplatting_tpu_torch/csrc/keygen.cu",
                      "vk3dgaussiansplatting_tpu/ops/keygen.py:126"),
+    # Also the distributed frame's 3-key sort, parallel/dist.py:195 _sort3.
+    "radix_sort": ("vk3dgaussiansplatting_tpu_torch/csrc/radix.cu",
+                   "vk3dgaussiansplatting_tpu/ops/sort.py:37"),
 }
-NOT_TPU_KERNELS = ("bitonic_sort", "keygen_project", "decode_slots")
+NOT_TPU_KERNELS = ("bitonic_sort", "keygen_project", "decode_slots", "radix_sort")
 
 
 def main() -> None:
     kind = phase_device()
     phase_build()
     check_keygen_ptxas()
+    check_radix_ptxas()
     phase_fixtures()
     check_expand_edge_cases()
+    check_radix_edge_cases()
 
     results = {}
     launches = dict.fromkeys(COUNTERS, 0)
     per_frame = {}  # path -> kernel -> launches a frame
     mults = {}
     for i, name in enumerate(SCENES):
-        renderer, cam, args, scene_launches, mults[name], per_frame["uncapped"], passes = (
-            run_scene(name))
+        (renderer, cam, args, scene_launches, mults[name], per_frame["uncapped"], passes,
+         radix_kernels) = run_scene(name)
         if i == 0:
             check_elements_vs_cpu(renderer, cam)
         results[name] = check_kernels(args, renderer.config, name, passes)
@@ -1722,6 +1985,9 @@ def main() -> None:
         results[name].update(check_keygen(
             args, name, [m for m in SphericalHarmonicsMode if m != renderer.config.sh_mode]
             if i == 0 else ()))
+        results[name]["radix_sort"] = check_radix(args["radix_sort"], name)
+        # The kernels a sort that the uncapped frames launched.
+        results[name]["radix_sort"]["kernels_per_sort"] = radix_kernels
         for k, v in scene_launches.items():
             launches[k] += v
         del renderer, args
@@ -1736,7 +2002,7 @@ def main() -> None:
         renderer, cam, cap, out, path_launches, capped_frame = run_capped(name, mults[name])
         per_frame["capped_steady" if renderer._plan is not None else "capped_temporal"] = capped_frame
         for k in ("keygen_project", "keygen_count", "expand_rows", "expand_rows_streamed",
-                  "decode_slots", "blend_flat", "compact_slabs"):
+                  "decode_slots", "radix_sort", "blend_flat", "compact_slabs"):
             launches[k] += path_launches[k]
         results[name].update(check_capped(renderer, cam, cap, out, name))
         if renderer._plan is not None:
@@ -1790,6 +2056,8 @@ def main() -> None:
                                           if k in r)
         if k == "keygen_project":  # its counts mode (count_live_elements)
             entry.update(count_launches=launches["keygen_count"], count_ms=res["count_ms"])
+        if k == "radix_sort":
+            entry.update(kernels_per_sort=res["kernels_per_sort"], device_ms=res["device_ms"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -47,8 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--sort", default="auto", choices=["auto", "xla", "bitonic"],
         help="sort algorithm (reference: GPU_SORT_ALGORITHM); auto and xla are the stable "
-             "torch.sort, bitonic the bitonic merge network (a CUDA kernel on the card; the "
-             "capacity must be a power of two, as it is by default)",
+             "LSD radix sort, bitonic the bitonic merge network (each a CUDA kernel on the "
+             "card; bitonic needs a power-of-two capacity, as it is by default)",
     )
     p.add_argument(
         "--sh-mode", type=int, default=0, choices=[0, 1, 2],

@@ -78,6 +78,12 @@ SIGNATURES = {
     "vk3d_bitonic_sort": (
         [_P, _P, _P, _I64, _P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I32, _P], ctypes.c_int,
     ),
+    # tile, depth, index, count (or NULL), e, num_tiles, scratch, out_tile,
+    # out_depth, out_index, out_perm (or NULL), launches (out), device, stream
+    "vk3d_radix_sort": (
+        [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I32, _P],
+        ctypes.c_int,
+    ),
     # position, scale, rot, opacity, sh, n, params (host), thr, counts, cols
     # (NULL: counts mode), color_alpha, cov2d, cov_inv, screen_pos, extents,
     # flags, device, stream

@@ -48,6 +48,7 @@ from ..models.gaussians import GaussianTable
 from ..ops import blend as blend_ops
 from ..ops import keygen as keygen_ops
 from ..ops import ranges as ranges_ops
+from ..ops import sort as sort_ops
 from ..ops.cuda import blend_kernel
 from ..utils.timing import section
 
@@ -175,18 +176,18 @@ def _bucket_by_destination(words: torch.Tensor, dest: torch.Tensor, ndev: int, s
 
 
 def _sort3(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor, num_tiles: int):
-    """The (tile, depth, gaussian id) order of JAX's 3-key sort, as one
-    stable sort on the int64 key (tile << 32) | depth (SENTINEL tiles mapped
-    to num_tiles, as ops/sort.py does).  The id order needs no key: in a
-    received list, slots of one (tile, depth) come from source ranks in
-    rank order (all_to_all) and, within a rank, in keygen's slot order
-    (stable bucketing), so their global ids (rank * shard + local id)
-    ascend already.  Returns (tile, depth, index) sorted and the
+    """The (tile, depth, gaussian id) order of JAX's 3-key sort, as the AUTO
+    sort's stable radix sort on (tile, depth) (ops/sort.py; the kernel
+    csrc/radix.cu on the card) over every slot: a received list holds
+    sentinels between its live slots, so no count bounds it.  The id order
+    needs no key: in a received list, slots of one (tile, depth) come from
+    source ranks in rank order (all_to_all) and, within a rank, in keygen's
+    slot order (stable bucketing), so their global ids (rank * shard +
+    local id) ascend already.  Returns (tile, depth, index) sorted and the
     permutation."""
-    t = torch.where(tile == SENTINEL, num_tiles, tile)
-    key, perm = torch.sort((t << 32) | depth, stable=True)
-    t = key >> 32
-    return torch.where(t == num_tiles, SENTINEL, t), key & 0xFFFFFFFF, index[perm], perm
+    el, perm = sort_ops.sort_elements_xla(keygen_ops.SortElements(tile, depth, index, None),
+                                          num_tiles, with_perm=True)
+    return el.tile, el.depth, el.index, perm
 
 
 def make_distributed_render(
