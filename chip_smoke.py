@@ -9,17 +9,23 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
   device   the card's name, and name + power limit from nvidia-smi
   build    the CUDA kernels compiled from csrc/, one nvcc per source, all
            started together (seconds, ptxas report); K7, K8 and the radix
-           sort's kernels without a spill or a stack, or the run fails
+           sort's kernels without a spill or a stack, or the run fails;
+           csrc/radix.cu's constants (vk3d_radix_config) equal to
+           radix_kernel's copies
   fixture  the fixture scenes on the card (kernels) against the CPU (plain
            versions): element counts equal, 8-bit ±1 per channel
   check    K1 against its plain version bit for bit on edge cases (zero
            counts, a 12,000-slot gaussian, 1.1M zero counts in a row,
-           total > E, E % 4 != 0, N = 0); the radix sort against its plain
-           version and the stable torch.sort bit for bit on edge cases (a
-           4096-tile config, count 0 and E, slots past the count not
-           SENTINEL, sentinels between live slots with the permutation, E
-           not a multiple of the block, all-equal keys, depth keys near
-           2^32 - 1, a 49-bit key), its input unchanged
+           total > E, E % 4 != 0, N = 0); the radix sort five times with
+           equal results and against its plain version and the stable
+           torch.sort bit for bit on edge cases (a 4096-tile config, count
+           0 and E, slots past the count not SENTINEL, sentinels between
+           live slots with the permutation, E not a multiple of the
+           partition, all-equal keys, all slots in one bin, a live prefix
+           ending inside a partition, depth keys near 2^32 - 1, a 49-bit
+           key), its input unchanged; then two different lists sorted back
+           to back (the second sort's scratch holds the first's look-back
+           flags)
   scene    train7k_720p: the benchmark stand-in cloud (559,263 gaussians,
            1280x720, capacity 4,245,663), scale calibrated to 3,487,911 live
            elements ±3% (K7's counts mode); 3 warm-up + 20 timed frames with
@@ -44,12 +50,16 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            K8 decode_slots against decode_slots_plain on K1's columns bit for
            bit; their times, plain times and bounds (K7 316 B a gaussian,
            K8 24 B a live slot + 24 B a slot).  The radix sort on the
-           frame's own keygen output against its plain version and the
-           stable torch.sort it replaced, bit for bit, its input unchanged;
-           its time, the plain version's, torch.sort's (library_ms), its
-           kernels by kind from the profiler, the bound (24 B a live slot
-           read + 24 B a slot written) and the passes' floor (the bytes its
-           passes move: 196 B a live slot at 6 passes)
+           frame's own keygen output five times (equal results) and against
+           its plain version and the stable torch.sort it replaced, bit for
+           bit, its input unchanged; its time, the plain version's,
+           torch.sort's (library_ms), its kernels by kind from the profiler
+           (setup, histogram, scatter), the bound (24 B a live slot read +
+           24 B a slot written), the passes' floor (`radix_floor_bytes`:
+           ~193 B a live slot at 6 passes) and the copy yardstick (copy_ of
+           the live slots' [3, n] uint32 records: what one pass must move,
+           at the card's attainable rate).  The scatter's phases come from
+           `radix_phases`, run by hand (an instrumented build of radix.cu)
   scene    garden30k_1080p: 5,834,784 gaussians at 1920x1080, capacity
            14,190,624, calibrated to 13,098,506 live ±3%; 3 warm-up + 10
            timed frames; the same checks of K1 and K2
@@ -156,6 +166,7 @@ launches per frame on each path, and last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import linecache
@@ -821,23 +832,43 @@ def torch_sort_elements(el, num_tiles: int, with_perm: bool = False):
     return (out, perm) if with_perm else out
 
 
-def radix_floor_bytes(n: int, e: int, passes: int, counted: bool, with_perm: bool) -> int:
-    """The bytes csrc/radix.cu's passes move for n sorted slots of e: the
+def radix_floor_bytes(n: int, e: int, num_tiles: int, counted: bool, with_perm: bool) -> int:
+    """The bytes csrc/radix.cu's kernels move for n sorted slots of e: the
     setup reads and writes the tail's three columns (and its permutation);
-    a histogram reads the digit's column (the first the int64 depth); a
-    scatter reads and writes the 12-byte records (the first reads the int64
+    the histogram reads the int64 depth and tile of the prefix once and
+    zeroes the status words (passes x partitions x 256 x 4 B); a scatter
+    reads and writes the 12-byte records (the first reads the int64
     columns, the index only without the permutation; the last writes the
-    int64 columns and the permutation, whose index it gathers)."""
+    int64 columns and the permutation, whose index it gathers), and each
+    live partition writes its 256 status words twice and reads 1 KB of its
+    predecessor's and the 1 KB digit table."""
+    passes = len(radix_kernel.schedule(num_tiles))
+    parts, live_parts = -(-e // radix_kernel.TILE), -(-n // radix_kernel.TILE)
     tail = (48 + 8 * with_perm) * (e - n) if counted else 0
-    hist = 8 * n + 4 * n * (passes - 1)
+    hist = 16 * n + 4 * radix_kernel.BINS * passes * parts
     scatter = ((16 if with_perm else 24) + 12) * n + 24 * n * (passes - 2) + 36 * n
-    return tail + hist + scatter + 16 * n * with_perm
+    lookback = 4 * 4 * radix_kernel.BINS * passes * live_parts
+    return tail + hist + scatter + 16 * n * with_perm + lookback
+
+
+def copy_yardstick_ms(n: int) -> float:
+    """A device copy of n 12-byte records (`copy_` of a [3, n] uint32
+    buffer): the card's attainable rate for what one scatter pass must read
+    and write."""
+    src = torch.empty((3, n), dtype=torch.int32, device="cuda")
+    dst = torch.empty_like(src)
+    return cuda_ms(lambda: dst.copy_(src), 20)
+
+
+RADIX_REPEATS = 5
 
 
 def check_radix(call, what: str, timed: bool = True) -> dict:
-    """The radix sort on one call's own inputs against its plain version
-    and the stable torch.sort, bit for bit (the permutation too), its input
-    unchanged; with `timed`, its times and bounds."""
+    """The radix sort on one call's own inputs, RADIX_REPEATS times with
+    equal results (a look-back ordering fault shows as a run that
+    differs), against its plain version and the stable torch.sort, bit for
+    bit (the permutation too), its input unchanged; with `timed`, its
+    times, its floor and bound, and the copy yardstick."""
     (tile, depth, index, count, num_tiles), kw = call
     with_perm = kw.get("with_perm", False)
     el = keygen.SortElements(tile, depth, index, count)
@@ -845,6 +876,11 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
     kernels = radix_kernel.PASSES
     got = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
     kernels = check_radix_kernels(what, call_plan(call), 1, radix_kernel.PASSES - kernels)
+    for k in range(1, RADIX_REPEATS):
+        again = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{what}: radix_sort run {k} differs from run 0 on the same list")
+    del again
     refs = {"plain version": sort.sort_elements_radix_plain(el, num_tiles, with_perm=with_perm),
             "stable torch.sort": torch_sort_elements(el, num_tiles, with_perm)}
     for ref_name, ref in refs.items():
@@ -863,6 +899,7 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
     res = {"max_abs_err": err, "e": e, "live": n, "with_perm": with_perm}
     if not timed:
         return res
+    del refs, plain, plain_cols, got
     passes = len(radix_kernel.schedule(num_tiles))
 
     def run():
@@ -874,27 +911,90 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
                                                                    with_perm=with_perm), 1),
         "library_ms": cuda_ms(lambda: torch_sort_elements(el, num_tiles, with_perm), 10),
         "device_ms": device_kinds(run, {"setup": r"radix_setup", "histogram": r"radix_histogram",
-                                        "scan": r"radix_scan", "scatter": r"radix_scatter"}),
+                                        "scatter": r"radix_scatter"}),
         "digit_passes": passes,
         # The function: 24 B a live slot read, 24 B a slot written (and the
         # permutation's 8), the count.
         **bound(24 * n + (32 if with_perm else 24) * e + 8, 0),
-        "passes_floor_ms": radix_floor_bytes(n, e, passes, count is not None, with_perm)
+        "passes_floor_ms": radix_floor_bytes(n, e, num_tiles, count is not None, with_perm)
         / PEAK_BYTES_PER_S * 1e3,
+        "copy_ms": copy_yardstick_ms(n),
     })
-    log(f"check {what} radix: radix_sort == plain == stable torch.sort bit for bit ({n} sorted "
-        f"of {e} slots, {passes} digit passes, {kernels:g} kernels"
+    scatter = res["device_ms"].get("scatter", {}).get("ms", float("nan"))
+    res["scatter_pass_ms"] = scatter / passes
+    log(f"check {what} radix: radix_sort x{RADIX_REPEATS} equal, == plain == stable torch.sort "
+        f"bit for bit ({n} sorted of {e} slots, {passes} digit passes, {kernels:g} kernels"
         f"{', with the permutation' if with_perm else ''}), its input unchanged; kernel "
         f"{res['ms']:.3f} ms vs plain {res['plain_ms']:.3f} ms, torch.sort "
         f"{res['library_ms']:.3f} ms; by kind {res['device_ms']}; bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']}, {res['bound_bytes']} B), the passes' floor "
-        f"{res['passes_floor_ms']:.4f} ms")
+        f"{res['passes_floor_ms']:.4f} ms; yardstick copy_ of [3, {n}] uint32 "
+        f"{res['copy_ms']:.4f} ms, a scatter pass {res['scatter_pass_ms']:.4f} ms "
+        f"({res['copy_ms'] / res['scatter_pass_ms']:.0%} of the copy's rate)")
     return res
+
+
+# The scatter's phases as csrc/radix.cu's instrumented build stamps them
+# (vk3d_radix_phases): slot pairs of thread 0's clock.
+RADIX_PHASES = {"stage": (1, 2), "count and rank": (2, 3), "scans": (3, 4),
+                "inverse map": (4, 5), "look-back": (5, 6), "stores": (6, 7)}
+
+
+def radix_phases(call, what: str) -> list[dict]:
+    """The radix sort of one call's inputs through a second library, built
+    from csrc/radix.cu alone with -DVK3D_RADIX_PHASES=1 (a measurement run
+    by hand; main() does not call it), whose scatter stamps each
+    partition's phases: per pass the mean µs of each phase a partition (the
+    block's clock over its cycles per ns), the pass's span, the blocks
+    resident on average, and bin 0's look-back length.  Its result must
+    equal the port's kernel's."""
+    (tile, depth, index, count, num_tiles), kw = call
+    with_perm = kw.get("with_perm", False)
+    lib = ctypes.CDLL(str(_build.build(("-DVK3D_RADIX_PHASES=1",), stems=("radix",))))
+    lib.vk3d_radix_sort.argtypes, lib.vk3d_radix_sort.restype = _build.SIGNATURES["vk3d_radix_sort"]
+    lib.vk3d_radix_phases.argtypes, lib.vk3d_radix_phases.restype = [ctypes.c_void_p], ctypes.c_int
+    e = tile.shape[0]
+    out = [torch.empty_like(tile) for _ in range(3 + with_perm)]
+    scratch = torch.empty(radix_kernel.scratch_words(e, num_tiles), dtype=torch.int32,
+                          device=tile.device)
+    launched = ctypes.c_int64(0)
+    err = lib.vk3d_radix_sort(
+        tile.data_ptr(), depth.data_ptr(), index.data_ptr(),
+        None if count is None else count.data_ptr(), e, num_tiles, scratch.data_ptr(),
+        *(x.data_ptr() for x in out[:3]), out[3].data_ptr() if with_perm else None,
+        ctypes.byref(launched), tile.device.index, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "radix_sort (phases build)")
+    want = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
+    if not all(torch.equal(a, b) for a, b in zip(out, want)):
+        raise RuntimeError(f"{what}: the phases build of the radix sort differs from the kernel")
+    stamps = np.zeros((radix_kernel.MAX_PASSES, 4096, 10), np.uint64)
+    _build.check_launch(lib.vk3d_radix_phases(stamps.ctypes.data), "vk3d_radix_phases")
+    n = e if count is None else min(max(int(count), 0), e)
+    parts = min(-(-n // radix_kernel.TILE), 4096)
+    rows = []
+    for q in range(len(radix_kernel.schedule(num_tiles))):
+        b = stamps[q, :parts].astype(np.int64)
+        ns = b[:, 8] - b[:, 0]
+        per_ns = (b[:, 7] - b[:, 1]).sum() / ns.sum()
+        span_us = (b[:, 8].max() - b[:, 0].min()) / 1e3
+        rows.append({
+            "pass": q, "span_us": round(float(span_us), 2),
+            "resident": round(float(ns.sum() / 1e3 / span_us), 1),
+            "block_us": round(float(ns.mean() / 1e3), 2),
+            **{k: round(float((b[:, hi] - b[:, lo]).mean() / per_ns / 1e3), 2)
+               for k, (lo, hi) in RADIX_PHASES.items()},
+            "look_back_words": round(float(b[1:, 9].mean()), 1),
+        })
+    log(f"radix phases {what} ({n} sorted, {parts} partitions; instrumented build, µs a "
+        f"partition): {rows}")
+    return rows
 
 
 def check_radix_edge_cases() -> None:
     """The radix sort on lists built to hit its edges, against its plain
-    version and the stable torch.sort (`check_radix`)."""
+    version and the stable torch.sort (`check_radix`), then two different
+    lists sorted back to back, so that the second sort's scratch (the
+    caching allocator's same block) holds the first's look-back flags."""
     rng = np.random.default_rng(9)
     tile_size = radix_kernel.TILE
     top = (1 << 32) - 1
@@ -912,7 +1012,12 @@ def check_radix_edge_cases() -> None:
             c[dead] = SENTINEL
         return cols, int((~dead).sum())
 
+    def on_card(cols, count):
+        t = [torch.from_numpy(c).cuda() for c in cols]
+        return t, None if count is None else torch.tensor(count, device="cuda")
+
     e = 3 * tile_size + 5
+    one_bin = 5 * tile_size + 3
     inter, inter_live = interleave(keygen_list(8160, 70_001, 70_001), 0.3)
     past, past_live = interleave(keygen_list(8160, 50_000, 50_000), 0.3)
     cases = {  # what: (num_tiles, columns, count or None, with_perm)
@@ -922,32 +1027,51 @@ def check_radix_edge_cases() -> None:
         "sentinels between live slots, every slot": (8160, inter, None, True),
         "slots past the count not SENTINEL": (8160, past, past_live, False),
         "E = 1": (3600, keygen_list(3600, 1, 1), 1, False),
-        "E = the block": (3600, keygen_list(3600, tile_size, tile_size), tile_size, True),
+        "E = the partition": (3600, keygen_list(3600, tile_size, tile_size), tile_size, True),
         "all-equal keys": (8160, keygen_list(8160, e, e - 3, tile=8159, depth=77), e - 3, False),
+        "all slots in one bin": (8160, keygen_list(8160, one_bin, one_bin, tile=0, depth=0),
+                                 one_bin, True),
+        "prefix ends inside a partition": (8160, keygen_list(8160, 4 * tile_size,
+                                                             2 * tile_size + 100),
+                                           2 * tile_size + 100, False),
         "depth near 2^32 - 1": (3600, keygen_list(3600, e, e,
                                                   depth=rng.integers(top - 40, top + 1, e)),
                                 e, False),
         "49-bit key": (70_000, keygen_list(70_000, e, 9000), 9000, False),
     }
     for what, (num_tiles, cols, count, with_perm) in cases.items():
-        t = [torch.from_numpy(c).cuda() for c in cols]
-        c = None if count is None else torch.tensor(count, device="cuda")
+        t, c = on_card(cols, count)
         check_radix(((*t, c, num_tiles), {"with_perm": with_perm}), f"radix edge case {what}",
                     timed=False)
-    log(f"check: radix_sort == plain == stable torch.sort bit for bit on {len(cases)} edge cases "
-        f"({', '.join(cases)}; interleaved: {inter_live} live of 70,001), inputs unchanged")
+    # Back to back on one stream, the same size, no synchronisation between.
+    size = 100 * tile_size + 17
+    lists = [on_card(keygen_list(8160, size, live), live) for live in (size - 999, 61 * tile_size)]
+    for with_perm in (False, True):
+        outs = [radix_kernel.radix_sort(*t, c, 8160, with_perm=with_perm) for t, c in lists]
+        for k, ((t, c), got) in enumerate(zip(lists, outs)):
+            ref = torch_sort_elements(keygen.SortElements(*t, c), 8160, with_perm=True)
+            want = [*ref[0][:3], ref[1]][:len(got)]
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"radix back to back: list {k} (with_perm {with_perm}) differs "
+                                   f"from the stable torch.sort")
+    log(f"check: radix_sort x{RADIX_REPEATS} equal == plain == stable torch.sort bit for bit on "
+        f"{len(cases)} edge cases ({', '.join(cases)}; interleaved: {inter_live} live of 70,001), "
+        f"inputs unchanged; two {size}-slot lists back to back == torch.sort")
 
 
 def check_radix_ptxas() -> list[str]:
-    """ptxas on the radix sort's kernels: no spills and no stack, or the run
-    fails."""
+    """ptxas on the radix sort's kernels (the setup, the histogram, three
+    scatter instantiations): no spills and no stack, or the run fails; and
+    the kernel's constants against the wrapper's copies."""
+    config = radix_kernel.check_kernel_config()
     entries = [" ".join(x) for x in ptxas_report() if x[0].startswith("radix_")]
-    if len(entries) != 7:
-        raise RuntimeError(f"ptxas reported {len(entries)} radix kernels, not 7: {entries}")
+    if len(entries) != 5:
+        raise RuntimeError(f"ptxas reported {len(entries)} radix kernels, not 5: {entries}")
     for entry in entries:
         if re.search(r"[1-9]\d* bytes (stack frame|spill)", entry):
             raise RuntimeError(f"radix kernel spills or uses a stack: {entry}")
-    log(f"check: ptxas on the radix kernels, no spill and no stack: {' | '.join(entries)}")
+    log(f"check: ptxas on the radix kernels, no spill and no stack: {' | '.join(entries)}; "
+        f"csrc/radix.cu's constants == radix_kernel's: {config}")
     return entries
 
 
@@ -2057,7 +2181,8 @@ def main() -> None:
         if k == "keygen_project":  # its counts mode (count_live_elements)
             entry.update(count_launches=launches["keygen_count"], count_ms=res["count_ms"])
         if k == "radix_sort":
-            entry.update(kernels_per_sort=res["kernels_per_sort"], device_ms=res["device_ms"])
+            entry.update(kernels_per_sort=res["kernels_per_sort"], device_ms=res["device_ms"],
+                         copy_ms=res["copy_ms"], scatter_pass_ms=res["scatter_pass_ms"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -159,7 +159,8 @@ def test_plain_is_stable_with_shuffled_ids():
 
 def test_schedule():
     """8-bit digits over 32 + bit_length(num_tiles) bits, least significant
-    first: 6 passes at 720p and 1080p, 7 where the key needs 49 bits."""
+    first: 6 passes at 720p and 1080p, 7 where the key needs 49 bits; the
+    kernels a sort and the scratch of the one-sweep design."""
     cfg_720, cfg_1080 = RenderConfig(width=1280, height=720), RenderConfig(width=1920, height=1080)
     assert (cfg_720.num_tiles, cfg_1080.num_tiles) == (3600, 8160)
     for num_tiles, bits, passes in ((3600, 44, 6), (8160, 45, 6), (4096, 45, 6), (4095, 44, 6),
@@ -169,12 +170,19 @@ def test_schedule():
         assert [c for c, _s, _b in sched] == ["depth"] * 4 + ["tile"] * (passes - 4)
         assert [s for _c, s, _b in sched] == [0, 8, 16, 24] + [8 * k for k in range(passes - 4)]
         assert sum(b for _c, _s, b in sched) == bits
-        assert rk.planned_kernels(num_tiles) == 1 + 3 * passes
-        assert rk.planned_kernels(num_tiles, counted=False) == 3 * passes
+        # The setup, the histogram, then one scatter a pass.
+        assert rk.planned_kernels(num_tiles) == 2 + passes
+        assert rk.planned_kernels(num_tiles, counted=False) == 1 + passes
+        assert passes <= rk.MAX_PASSES
     # The trap: RenderConfig.num_tile_bits counts num_tiles - 1.
     assert RenderConfig(width=1024, height=1024).num_tile_bits == 12
     assert rk.key_bits(RenderConfig(width=1024, height=1024).num_tiles) == 45
-    assert rk.scratch_words(rk.TILE + 1) == 6 * (rk.TILE + 1) + 2 * rk.BINS + rk.BINS + 1
+    # The header, 6 passes x 2 partitions of 256 status words, two [3, e]
+    # record buffers with columns padded to 4 words.
+    assert rk.TILE == 6144 and rk.HEADER_WORDS == 16 + 8 * rk.BINS
+    assert rk.scratch_words(rk.TILE + 1, 8160) == (rk.HEADER_WORDS + 6 * 2 * rk.BINS
+                                                   + 6 * (rk.TILE + 4))
+    assert rk.scratch_words(8, 3600) == rk.HEADER_WORDS + 6 * rk.BINS + 6 * 8
 
 
 def test_wrapper_guards():
@@ -229,6 +237,7 @@ def test_radix_kernel_on_cuda():
     kernels counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the radix sort is a CUDA kernel with no CPU mode")
+    rk.check_kernel_config()
     rng = np.random.default_rng(11)
     for num_tiles, e, live, count in ((8160, 1, 1, 1), (8160, rk.TILE - 1, 3000, 3000),
                                       (4096, rk.TILE, rk.TILE, rk.TILE),

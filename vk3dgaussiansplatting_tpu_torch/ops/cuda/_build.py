@@ -84,6 +84,8 @@ SIGNATURES = {
         [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I32, _P],
         ctypes.c_int,
     ),
+    # out (host int32), n: csrc/radix.cu's constants
+    "vk3d_radix_config": ([_P, _I32], ctypes.c_int),
     # position, scale, rot, opacity, sh, n, params (host), thr, counts, cols
     # (NULL: counts mode), color_alpha, cov2d, cov_inv, screen_pos, extents,
     # flags, device, stream
@@ -110,23 +112,26 @@ def find_nvcc() -> str | None:
     return None
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def _sources(stems: tuple[str, ...] = ()) -> list[Path]:
+    """csrc/*.cu, or only the named ones."""
+    return sorted(p for p in CSRC_DIR.glob("*.cu") if not stems or p.stem in stems)
 
 
-def library_path() -> Path:
+def library_path(extra_flags: tuple[str, ...] = (), stems: tuple[str, ...] = ()) -> Path:
     """The library's path, keyed by the flags, the sources and the headers
     they include (csrc/*.cuh)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
+    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *extra_flags]).encode())
+    for src in _sources(stems) + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libvk3d_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels if their library is not built yet; return it."""
-    out = library_path()
+def build(extra_flags: tuple[str, ...] = (), stems: tuple[str, ...] = ()) -> Path:
+    """Compile the kernels if their library is not built yet; return it.
+    `extra_flags` (e.g. a -D switch) and `stems` (only those csrc/*.cu)
+    build a separate library beside the one `load_library` loads."""
+    out = library_path(extra_flags, stems)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -139,8 +144,9 @@ def build() -> Path:
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
         procs = []
-        for src in _sources():
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src.stem}.o"), str(src)]
+        for src in _sources(stems):
+            cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(work / f"{src.stem}.o"),
+                   str(src)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
             )))
@@ -154,7 +160,8 @@ def build() -> Path:
                 )
             reports.append(stdout + stderr)
         tmp = work / out.name
-        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(work / f"{s.stem}.o") for s in _sources())]
+        objs = [str(work / f"{src.stem}.o") for src in _sources(stems)]
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")

@@ -8,7 +8,12 @@ its ops/sort.py docstring says); the port runs the reference's shape:
 `sort_elements_xla` is an LSD radix sort of 8-bit digits, the CUDA kernel
 csrc/radix.cu (ops/cuda/radix_kernel.py) on CUDA tensors and
 `sort_elements_radix_plain`, the kernel's arithmetic in torch ops, on CPU
-tensors.  Neither falls back to the other.
+tensors.  Neither falls back to the other.  The kernel is one-sweep: one
+histogram kernel counts every digit in one read of the key columns, then
+one scatter kernel a digit finds each partition's place in its bins by
+decoupled look-back over the earlier partitions; the plain version sums
+the same counts directly (`_counting_pass`), so the two give the same
+destinations.
 
 The key is tile' above the 32 depth bits, where tile' maps the SENTINEL
 tile 0xFFFFFFFF to `num_tiles` (above every live tile, as the JAX sort maps
@@ -55,18 +60,19 @@ def _sorted_len(elements: SortElements) -> int:
 
 def _counting_pass(digit: torch.Tensor) -> torch.Tensor:
     """One stable counting pass over 8-bit digits, counted as the kernel's
-    scatter counts it: slot i of block b (TILE slots) is lane i % 32 of
-    round i // 32 of warp i // (32 * ITEMS); its destination is its bin's
-    base + the earlier blocks' count of the bin (the scanned bin-major
-    table) + the block's earlier warps' count + the warp's earlier rounds'
-    count + the round's lower lanes with its digit.  Returns each slot's
+    scatter counts it: slot i of partition b (TILE slots) is lane i % 32 of
+    round i // 32 % ITEMS of warp i % TILE // (32 * ITEMS); its destination
+    is its bin's base (the scanned global histogram) + the earlier
+    partitions' count of the bin (what the kernel's look-back sums) + the
+    partition's earlier warps' count + the warp's earlier rounds' count +
+    the round's lower lanes with its digit.  Returns each slot's
     destination."""
     n = digit.shape[0]
     dev = digit.device
     bins, tile = radix_kernel.BINS, radix_kernel.TILE
-    nblocks = -(-n // tile)
-    # Pad to whole blocks; a pad slot has digit BINS, no bin.
-    d = torch.cat([digit, digit.new_full((nblocks * tile - n,), bins)])
+    nparts = -(-n // tile)
+    # Pad to whole partitions; a pad slot has digit BINS, no bin.
+    d = torch.cat([digit, digit.new_full((nparts * tile - n,), bins)])
     lanes = d.view(-1, _LANES)
     lower = torch.ones(_LANES, _LANES, dtype=torch.bool, device=dev).tril(-1)
     below = torch.cat([((r[:, :, None] == r[:, None, :]) & lower).sum(2)
@@ -76,9 +82,9 @@ def _counting_pass(digit: torch.Tensor) -> torch.Tensor:
     hist = torch.bincount(rnd * (bins + 1) + d, minlength=nrounds * (bins + 1))
     per_warp = hist.view(-1, radix_kernel.ITEMS, bins + 1)[..., :bins]
     round_before = (per_warp.cumsum(1) - per_warp).reshape(nrounds, bins)
-    per_block = per_warp.sum(1).view(nblocks, radix_kernel.WARPS, bins)
-    warp_before = (per_block.cumsum(1) - per_block).reshape(-1, bins)
-    table = per_block.sum(1).T  # [bins, nblocks], bin-major
+    per_part = per_warp.sum(1).view(nparts, radix_kernel.WARPS, bins)
+    warp_before = (per_part.cumsum(1) - per_part).reshape(-1, bins)
+    table = per_part.sum(1).T  # [bins, nparts]: each partition's count of each bin
     before = table.cumsum(1) - table
     totals = table.sum(1)
     base = totals.cumsum(0) - totals
