@@ -34,7 +34,11 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            frame, the radix sort's kernels (radix_kernel.PASSES) are its
            planned_kernels a sort, no feature table is built, and the
            warm-up frames call no torch.sort or argsort (a
-           TorchFunctionMode counts them)
+           TorchFunctionMode counts them); one more frame under
+           torch.profiler: its keygen pass is K7, K1's partition and
+           expansion kernels and K8 in a row, no other device op between
+           them (`check_keygen_pass`; so on the capped, CLI and
+           distributed paths)
   check    on that scene's last frame: keygen/sort/ranges on the card ==
            on the CPU bit for bit; K1 == its plain version bit for bit; K2
            (blend_tiles on the frame's own GaussianFrameData) vs its plain
@@ -42,14 +46,16 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            1e-4 of pixel-channels; kernel, plain and library times and the
            bound.  K7 keygen_project against project_gaussians_plain on the
            frame's own table, camera and config (train7k also in the other
-           two SH modes): counts, the packed int32 rows (depth keys,
-           extents), the extents and the visible / keep flags bit for bit;
-           each float column of the frame data within 1 ulp on at most 1e-6
-           of its values, every differing gaussian checked to be an _fma tie
-           of the plain version (`fma_ties`); its counts mode bit for bit;
-           K8 decode_slots against decode_slots_plain on K1's columns bit for
-           bit; their times, plain times and bounds (K7 316 B a gaussian,
-           K8 24 B a live slot + 24 B a slot).  The radix sort on the
+           two SH modes): the packed int32 rows (depth keys, extents), the
+           extents and the visible / keep flags bit for bit; each float
+           column of the frame data within 1 ulp on at most 1e-6 of its
+           values, every differing gaussian checked to be an _fma tie of the
+           plain version (`fma_ties`); the offset row, the scan `cum` and
+           the total bit for bit; its counts mode (total, extents, flags)
+           bit for bit; K8 decode_slots against decode_slots_plain on K1's
+           columns bit for bit; their times, plain times and bounds (K7 316
+           B a gaussian, K8 24 B a live slot + 24 B a slot), K7's counts
+           mode and the wrapper's host µs a call.  The radix sort on the
            frame's own keygen output five times (equal results) and against
            its plain version and the stable torch.sort it replaced, bit for
            bit, its input unchanged; its time, the plain version's,
@@ -176,6 +182,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -257,16 +264,16 @@ FLOPS_PER_COLOUR = 7
 FRAME_ROW_BYTES = 36
 TABLE_ROW_BYTES = 40
 # K7 keygen_project, a gaussian: the table row it reads (position 12, scale
-# 12, rot 16, opacity 4, the SH row 192), and what the wrapper writes (the
-# count 8, the six int32 column rows 24, the frame data 48); in the counts
-# mode it reads position, scale and rot and writes the count.  Its float32
+# 12, rot 16, opacity 4, the SH row 192), and what it writes (the six int32
+# column rows 24, the inclusive scan 8, the frame data 48); in the counts
+# mode it reads position, scale and rot, and writes only the total.  Its float32
 # operations (a multiply-add counts 2), as csrc/keygen.cu writes them: view
 # transform 18, NDC 14, depth 3, rotation 54, R S 9, W R S 45, the Jacobian
 # 13, J A 18, covariance 17, screen 6, extents 21, direction 12, SH basis
 # 30, SH dot 96, colour 6, inverse 4.
 KEYGEN_READ_BYTES = 236
 KEYGEN_WRITE_BYTES = 80
-KEYGEN_COUNT_BYTES = 48
+KEYGEN_COUNT_BYTES = 40
 KEYGEN_FLOPS = 366
 # K7's floats against its plain version: at most 1 ulp apart, on at most
 # this share of a column's values, each at an _fma tie of the plain version.
@@ -488,14 +495,18 @@ def bound(nbytes: int, ops: int) -> dict:
             "bound_bytes": int(nbytes), "bound_ops": int(ops)}
 
 
-def expand_bound(cols: torch.Tensor, counts: torch.Tensor, capacity: int) -> dict:
-    """K1's bound: the counts read, the column values of the rows that own
-    a live slot read once, the [C, E] output and the total written."""
-    c64 = counts.to(torch.int64)
-    starts = torch.cumsum(c64, 0) - c64
-    owning = int(((c64 > 0) & (starts < capacity)).sum())
+def expand_bound(cols: torch.Tensor, cum: torch.Tensor, capacity: int) -> dict:
+    """K1's bound: the scan read, the column values of the rows that own a
+    live slot read once, the [C, E] output and the total written."""
+    counts = counts_of(cum)
+    owning = int(((counts > 0) & (cum - counts < capacity)).sum())
     ncols, n = cols.shape
-    return bound(4 * ncols * owning + counts.element_size() * n + 4 * ncols * capacity + 8, 0)
+    return bound(4 * ncols * owning + 8 * n + 4 * ncols * capacity + 8, 0)
+
+
+def counts_of(cum: torch.Tensor) -> torch.Tensor:
+    """The counts an inclusive scan sums."""
+    return torch.diff(cum, prepend=cum.new_zeros(1))
 
 
 def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, tile_base=0,
@@ -603,17 +614,25 @@ def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, til
             "slots_batch": int(per_tile_batch.sum()), "rows_batch": distinct_rows(per_tile_batch)}
 
 
+# Clock cycles (~1 ms on the H100) of the spin kernel that opens a
+# profiled window.
+SETTLE_CYCLES = 2_000_000
+
+
 def _profile(fn, iters: int):
     """torch.profiler's CUDA kernels over `iters` calls of `fn` after one
-    warm-up: (name, device ms summed, launches) of each kernel."""
+    warm-up: (name, device ms summed, launches) of each kernel.  The window
+    opens with `SETTLE_CYCLES` of spin, as in `device_ops`."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SETTLE_CYCLES)
+        torch.cuda.synchronize()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return [(ev.key, ev.self_device_time_total / 1e3, ev.count)
-            for ev in prof.key_averages() if ev.self_device_time_total > 0]
+    return [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+            if ev.self_device_time_total > 0 and "spin_kernel" not in ev.key]
 
 
 def _per_call(ms: float, launches: int, iters: int) -> tuple[float, int]:
@@ -639,6 +658,64 @@ def device_kinds(fn, kinds: dict, iters: int = 3) -> dict:
         total, count = out.get(kind, (0.0, 0))
         out[kind] = (total + ms, count + n)
     return {k: dict(zip(("ms", "kernels"), _per_call(ms, n, iters))) for k, (ms, n) in out.items()}
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Host µs a call of `fn` takes to return (its enqueue), the device not
+    waited on inside the window."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
+def device_ops(fn) -> list[str]:
+    """The device activities (kernels, memsets, copies) of one call of
+    `fn`, in the order they started, from torch.profiler's CUDA trace.
+    The trace can lose the first activities after it starts (a pass's
+    first one or two, on the H100), so a spin kernel of `SETTLE_CYCLES`,
+    waited on and left out of the result, goes first."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SETTLE_CYCLES)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in e.name]
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+
+
+def short_op(name: str) -> str:
+    m = re.search(r"(\w+_kernel)(<[^(]*?>)?\(", name)
+    return m.group(1) + (m.group(2) or "") if m else name[:48]
+
+
+# A card keygen pass, device op by device op after K7's full launch (its
+# scratch memset comes just before it).
+KEYGEN_PASS = ("partition_kernel", "expand_rows_kernel", "decode_slots_kernel")
+
+
+def check_keygen_pass(ops: list[str], what: str) -> list[str]:
+    """Every full K7 launch among `ops` (a profiled window's device ops) is
+    followed at once by K1's partition kernel, K1's expansion and K8: no
+    PyTorch kernel, memset or copy between them.  Raises otherwise, or if
+    the window holds no full K7 launch; returns the last pass's ops, from
+    the one before K7 to K8."""
+    full = [j for j, op in enumerate(ops) if "keygen_project_kernel" in op]
+    if not full:
+        raise RuntimeError(f"{what}: the profiler saw no full K7 launch in "
+                           f"{[short_op(x) for x in ops]}")
+    for j in full:
+        after = [short_op(x) for x in ops[j + 1: j + 1 + len(KEYGEN_PASS)]]
+        if [re.sub(r"<.*", "", x) for x in after] != list(KEYGEN_PASS):
+            raise RuntimeError(f"{what}: K7 is followed by {after}, not {list(KEYGEN_PASS)}")
+    j = full[-1]
+    return [short_op(x) for x in ops[max(j - 1, 0): j + 1 + len(KEYGEN_PASS)]]
 
 
 def check_image(img: torch.Tensor, config: RenderConfig, what: str) -> None:
@@ -749,6 +826,8 @@ def run_scene(name: str):
     check_image(out.image, config, name)
     if int(out.num_elements) <= 0:
         raise RuntimeError(f"{name}: no live elements")
+    # One more frame at the last camera, under the profiler.
+    keygen_pass = check_keygen_pass(device_ops(lambda: renderer.draw(cam)), name)
     log(f"scene {name}: {table.num_gaussians} gaussians, capacity "
         f"{renderer.capacity}, scale x{mult:.4f} -> {live} live (target {target}, "
         f"calibrated in {calib_s:.1f} s); last frame {int(out.num_elements)} elements; "
@@ -756,7 +835,8 @@ def run_scene(name: str):
         f"(min {min(frame_ms):.3f}, max {max(frame_ms):.3f}, {frames} frames); per pass ms "
         + ", ".join(f"{k} {passes[k]:.3f}" for k in ("keygen", "expand", "sort", "ranges", "blend"))
         + f"; launches {launches}, {radix_kernels:g} kernels a radix sort; feature tables built "
-        f"{tables}; torch.sort/argsort calls in the {WARMUP_FRAMES} warm-up frames {sorts.calls}")
+        f"{tables}; torch.sort/argsort calls in the {WARMUP_FRAMES} warm-up frames {sorts.calls}; "
+        f"a keygen pass's device ops {keygen_pass}")
     per_frame = {k: v / drawn for k, v in counts.items()}
     return renderer, cam, cap.args, launches, mult, per_frame, passes, radix_kernels
 
@@ -811,7 +891,7 @@ def check_expand_edge_cases() -> None:
             np.arange(n, dtype=np.int32),
             rng.integers(-(2**31), 2**31, size=n).astype(np.int32),
         ])).cuda()
-        c = torch.from_numpy(np.asarray(counts, np.int32)).cuda()
+        c = torch.cumsum(torch.from_numpy(np.asarray(counts, np.int64)).cuda(), 0)
         got, total = expand_kernel.expand_rows(cols, c, capacity)
         want, want_total = expand_kernel.expand_rows_plain(cols, c, capacity)
         if not torch.equal(got, want) or int(total) != int(want_total):
@@ -1078,9 +1158,10 @@ def check_radix_ptxas() -> list[str]:
 def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
     """Each kernel against its plain version on the frame's own inputs, with
     its bound and the library call's time."""
-    (cols, counts, capacity), _ = args["expand_rows"]
-    got, total = expand_kernel.expand_rows(cols, counts, capacity)
-    want, want_total = expand_kernel.expand_rows_plain(cols, counts, capacity)
+    (cols, cum, capacity), _ = args["expand_rows"]  # cum: K7's scan
+    counts = counts_of(cum)
+    got, total = expand_kernel.expand_rows(cols, cum, capacity)
+    want, want_total = expand_kernel.expand_rows_plain(cols, cum, capacity)
     live = int(min(int(total), capacity))
     if int(total) != int(want_total) or not torch.equal(got[:, :live], want[:, :live]):
         raise RuntimeError(f"{name}: expand_rows differs from its plain version")
@@ -1088,13 +1169,11 @@ def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
         raise RuntimeError(f"{name}: expand_rows left dead slots non-zero")
     k1 = {
         "max_abs_err": int((got.to(torch.int64) - want.to(torch.int64)).abs().max()),
-        "ms": cuda_ms(lambda: expand_kernel.expand_rows(cols, counts, capacity), 20),
-        "plain_ms": cuda_ms(lambda: expand_kernel.expand_rows_plain(cols, counts, capacity), 3),
+        "ms": cuda_ms(lambda: expand_kernel.expand_rows(cols, cum, capacity), 20),
+        "plain_ms": cuda_ms(lambda: expand_kernel.expand_rows_plain(cols, cum, capacity), 3),
         "library_ms": cuda_ms(lambda: torch.repeat_interleave(cols, counts, dim=1), 10),
-        # The wrapper's scan and the partition search, inside "ms".
-        "scan_ms": cuda_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int64), 20),
-        "device_ms": device_breakdown(lambda: expand_kernel.expand_rows(cols, counts, capacity)),
-        **expand_bound(cols, counts, capacity),
+        "device_ms": device_breakdown(lambda: expand_kernel.expand_rows(cols, cum, capacity)),
+        **expand_bound(cols, cum, capacity),
     }
 
     (elements, rng_, frame, _cfg), _ = args["blend_tiles"]
@@ -1121,8 +1200,8 @@ def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
         **bound(8 * work["slots"] + FRAME_ROW_BYTES * work["rows"] + 16 * config.num_tiles
                 + 12 * config.width * config.height, work["ops"]),
     }
-    log(f"check {name}: expand_rows bit-exact ({live} live of {capacity}), kernel "
-        f"{k1['ms']:.3f} ms (its scan {k1['scan_ms']:.3f}) vs plain {k1['plain_ms']:.3f} ms, "
+    log(f"check {name}: expand_rows bit-exact ({live} live of {capacity}, on K7's scan), kernel "
+        f"{k1['ms']:.3f} ms vs plain {k1['plain_ms']:.3f} ms, "
         f"kernels {k1['device_ms']}, repeat_interleave "
         f"{k1['library_ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}, "
         f"{k1['bound_bytes']} B); blend_tiles float max |Δ| {k2['max_abs_err']:.3e}, 8-bit "
@@ -1170,11 +1249,12 @@ def fma_ties(call, rows: torch.Tensor) -> torch.Tensor:
 
 
 def check_projection(call, what: str) -> dict:
-    """K7 against its plain version on one call's own inputs: counts, the
-    packed rows, extents and the visible / keep flags bit for bit; each
-    float column within KEYGEN_MAX_ULP on at most KEYGEN_MAX_FRAC of its
-    values, every differing gaussian at an _fma tie (`fma_ties`); the
-    counts mode's counts bit for bit."""
+    """K7 against its plain version on one call's own inputs: the packed
+    rows (the clamped offset row too), the scan `cum`, the total, extents
+    and the visible / keep flags bit for bit; each float column within
+    KEYGEN_MAX_ULP on at most KEYGEN_MAX_FRAC of its values, every
+    differing gaussian at an _fma tie (`fma_ties`); the counts mode's
+    total, extents and flags bit for bit."""
     got = keygen_kernel.project_gaussians(*call, with_aux=True)
     want = keygen_kernel.project_gaussians_plain(*call, with_aux=True)
     bad = keygen_kernel.projection_mismatch(got, want)
@@ -1183,7 +1263,7 @@ def check_projection(call, what: str) -> dict:
         raise RuntimeError(f"{what}: keygen_project's integer outputs differ from its plain "
                            f"version: {ints}")
     n = call[0].num_gaussians
-    rows = torch.zeros(n, dtype=torch.bool, device=got.counts.device)
+    rows = torch.zeros(n, dtype=torch.bool, device=got.total.device)
     max_abs = 0.0
     for k in keygen_kernel.FLOAT_FIELDS:
         count, ulp = bad[k]
@@ -1202,12 +1282,15 @@ def check_projection(call, what: str) -> dict:
             raise RuntimeError(f"{what}: keygen_project differs by 1 ulp at gaussians "
                                f"{idx[~ties].tolist()[:20]} without an _fma tie")
     counts_call = (*call[:5], None, call[6])
-    counts = keygen_kernel.project_gaussians(*counts_call).counts
-    if not torch.equal(counts, keygen_kernel.project_gaussians_plain(*counts_call).counts):
-        raise RuntimeError(f"{what}: keygen_project's counts mode differs from its plain version")
+    got_c = keygen_kernel.project_gaussians(*counts_call, with_aux=True)
+    want_c = keygen_kernel.project_gaussians_plain(*counts_call, with_aux=True)
+    bad_c = keygen_kernel.projection_mismatch(got_c, want_c)
+    if any(bad_c.values()) or set(bad_c) != {"total", "extents", "flags"}:
+        raise RuntimeError(f"{what}: keygen_project's counts mode differs from its plain "
+                           f"version: {bad_c}")
     return {"mismatch": {k: bad[k] for k in keygen_kernel.FLOAT_FIELDS},
             "tie_gaussians": idx.tolist()[:20], "max_abs_err": max_abs,
-            "live": int(got.counts.sum())}
+            "live": int(got.total)}
 
 
 def check_keygen(args, name: str, sh_modes=()) -> dict:
@@ -1223,8 +1306,16 @@ def check_keygen(args, name: str, sh_modes=()) -> dict:
         c = (*call[:4], dataclasses.replace(config, sh_mode=mode), *call[5:])
         modes[mode.name] = check_projection(c, f"{name} keygen_project {mode.name}")["mismatch"]
     counts_call = (*call[:5], None, thr)
+    scratch_words = _build.load_library().vk3d_keygen_scratch_words(n, config.num_tiles)
     k7.update({
         "sh_modes": modes,
+        # The wrapper's host time a call, and the parts of it that are not
+        # the allocations, the .contiguous() calls and the ctypes call.
+        "host_us": host_us(lambda: keygen_kernel.project_gaussians(*call)),
+        "host_us_params": host_us(lambda: keygen_kernel.keygen_params(*call[1:5])),
+        "host_us_check": host_us(lambda: keygen_kernel._check(table, thr, config)),
+        "host_us_outputs": host_us(lambda: keygen_kernel._outputs(
+            n, table.position.device, scratch_words, False)),
         "ms": cuda_ms(lambda: keygen_kernel.project_gaussians(*call), 20),
         "plain_ms": cuda_ms(lambda: keygen_kernel.project_gaussians_plain(*call), 1),
         "library_ms": None,
@@ -1256,12 +1347,16 @@ def check_keygen(args, name: str, sh_modes=()) -> dict:
         **bound(24 * live + 24 * e + 16, 0),
     }
     log(f"check {name} keygen: keygen_project == plain on {n} gaussians ({k7['live']} live, "
-        f"prefilter {'on' if thr is not None else 'off'}): counts, packed rows, extents, "
+        f"prefilter {'on' if thr is not None else 'off'}): packed rows, extents, "
         f"visible/keep bit for bit; floats (values differing, max ulp) {k7['mismatch']}, "
         f"max |Δ| {k7['max_abs_err']:.3e}, _fma-tie gaussians {k7['tie_gaussians']}"
         + "".join(f"; {m} {v}" for m, v in modes.items())
-        + f"; counts mode == plain; kernel {k7['ms']:.3f} ms vs plain {k7['plain_ms']:.3f} ms, "
-        f"counts mode {k7['count_ms']:.3f} ms (bound {k7['count_bound_ms']:.4f}), kernels "
+        + f"; offset row, cum and total bit for bit; counts mode (total, extents, flags) == "
+        f"plain; kernel "
+        f"{k7['ms']:.3f} ms vs plain {k7['plain_ms']:.3f} ms, counts mode {k7['count_ms']:.3f} ms "
+        f"(bound {k7['count_bound_ms']:.4f}), host µs a call {k7['host_us']:.1f} (keygen_params "
+        f"{k7['host_us_params']:.1f}, _check {k7['host_us_check']:.1f}, the outputs' "
+        f"allocations {k7['host_us_outputs']:.1f}), kernels "
         f"{k7['device_ms']}, bound {k7['bound_ms']:.4f} ms ({k7['bound_by']}, "
         f"{k7['bound_bytes']} B); decode_slots == plain bit for bit ({live} live of {e}), "
         f"{k8['ms']:.3f} ms vs plain {k8['plain_ms']:.3f} ms, kernels {k8['device_ms']}, bound "
@@ -1270,9 +1365,10 @@ def check_keygen(args, name: str, sh_modes=()) -> dict:
 
 
 def check_keygen_ptxas() -> list[str]:
-    """ptxas on K7 and K8: no spills and no stack, or the run fails."""
-    entries = [" ".join(x) for x in ptxas_report()
-               if x[0].startswith(("keygen_project_kernel", "decode_slots_kernel"))]
+    """ptxas on K7 (its full and counts-mode kernels) and K8: no spills and
+    no stack, or the run fails."""
+    entries = [" ".join(x) for x in ptxas_report() if x[0].startswith(
+        ("keygen_project_kernel", "keygen_count_kernel", "decode_slots_kernel"))]
     if len(entries) != 3:
         raise RuntimeError(f"ptxas reported {len(entries)} keygen kernels, not 3: {entries}")
     for entry in entries:
@@ -1280,6 +1376,29 @@ def check_keygen_ptxas() -> list[str]:
             raise RuntimeError(f"keygen kernel spills or uses a stack: {entry}")
     log(f"check: ptxas on the keygen kernels, no spill and no stack: {' | '.join(entries)}")
     return entries
+
+
+# One tree's part of the frame A/B: the uncapped frames at both scenes and
+# the capped frame at garden, as main() runs them.
+AB_TREE = ("import chip_smoke as c\n"
+           "c.phase_device()\n"
+           "c.phase_build()\n"
+           "mults = {n: c.run_scene(n)[4] for n in c.SCENES}\n"
+           "c.run_capped('garden30k_1080p', mults['garden30k_1080p'])\n")
+
+
+def ab_frames(trees=("tmp/parent", ".", ".", "tmp/parent")) -> None:
+    """The frame A/B of two trees in the order given (parent, change,
+    change, parent): `AB_TREE` in each, one process a tree started from it,
+    each building its own kernels.  Run by hand, not by main():
+
+        mkdir -p tmp/parent && git archive HEAD | tar -x -C tmp/parent
+        python3 -c 'import chip_smoke; chip_smoke.ab_frames()'
+
+    (tmp/ is listed in .gitignore)."""
+    for tree in trees:
+        log(f"=== tree {tree}")
+        subprocess.run([sys.executable, "-c", AB_TREE], cwd=tree, check=True, timeout=900)
 
 
 def timed_draws(renderer: Renderer, cam: Camera, base, frames: int, cap=None):
@@ -1456,6 +1575,7 @@ def run_capped(name: str, mult: float):
         if chained and plan.mode != "steady":
             raise RuntimeError(f"{name}: the steady switch was not taken")
         syncs, sync_lines = count_syncs(lambda: [draw() for _ in range(SYNC_FRAMES)])
+        keygen_pass = check_keygen_pass(device_ops(draw), f"{name} capped")
         for k in capped_ops.PATH_COUNTS:
             capped_ops.PATH_COUNTS[k] = 0
         timer = CudaPassTimer()
@@ -1507,8 +1627,8 @@ def run_capped(name: str, mult: float):
         + f"; feature tables built {tables}; torch.sort/argsort calls in the {warm} warm-up "
         f"frames {sorts.calls}; frames fast/patch/full {dict(capped_ops.PATH_COUNTS)}; ok {oks}; "
         f"host syncs per "
-        f"frame {syncs / SYNC_FRAMES:g} {sync_lines}; launches {launches}; per timed frame "
-        f"{per_frame}")
+        f"frame {syncs / SYNC_FRAMES:g} {sync_lines}; a keygen pass's device ops {keygen_pass}; "
+        f"launches {launches}; per timed frame {per_frame}")
     return renderer, cam, cap, out, launches, per_frame
 
 
@@ -1521,7 +1641,8 @@ def parent_gid(args, wmax: int) -> torch.Tensor:
     gid_raw = compact_kernel.compact_runs(src, starts, sbase, ep, wmax)
     nchunks, align = ep // compact_kernel.CHUNK, compact_kernel.CHUNK
     cols, _ = expand_kernel.expand_rows(
-        torch.stack([sbase // align, counts, off]).to(torch.int32), slabw // align, nchunks)
+        torch.stack([sbase // align, counts, off]).to(torch.int32),
+        torch.cumsum(slabw // align, 0, dtype=torch.int64), nchunks)
     cols = cols.to(torch.int64)
     chunk_local = (torch.arange(nchunks, device=src.device) - cols[0]) * align
     lo, hi = cols[2] - chunk_local, cols[2] + cols[1] - chunk_local
@@ -1683,19 +1804,20 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
 
     # K1' under the prefilter.
     if cap.calls.get("expand_rows_streamed"):
-        (cols, counts, capacity), _ = cap.calls["expand_rows_streamed"][-1]
+        (cols, cum, capacity), _ = cap.calls["expand_rows_streamed"][-1]
+        counts = counts_of(cum)
         fn = expand_kernel.expand_rows_streamed
-        g, total = fn(cols, counts, capacity)
-        w, want_total = expand_kernel.expand_rows_plain(cols, counts, capacity)
+        g, total = fn(cols, cum, capacity)
+        w, want_total = expand_kernel.expand_rows_plain(cols, cum, capacity)
         n_live = min(int(total), capacity)
         if int(total) != int(want_total) or not torch.equal(g[:, :n_live], w[:, :n_live]):
             raise RuntimeError(f"{name}: expand_rows_streamed differs from its plain version")
         res["expand_rows_streamed"] = {
             "max_abs_err": int((g.to(torch.int64) - w.to(torch.int64)).abs().max()),
-            "ms": cuda_ms(lambda: fn(cols, counts, capacity), 20),
-            "plain_ms": cuda_ms(lambda: expand_kernel.expand_rows_plain(cols, counts, capacity), 3),
+            "ms": cuda_ms(lambda: fn(cols, cum, capacity), 20),
+            "plain_ms": cuda_ms(lambda: expand_kernel.expand_rows_plain(cols, cum, capacity), 3),
             "library_ms": cuda_ms(lambda: torch.repeat_interleave(cols, counts, dim=1), 10),
-            **expand_bound(cols, counts, capacity),
+            **expand_bound(cols, cum, capacity),
         }
 
     # The capped frame against the uncapped K2 frame of the same camera.
@@ -1787,6 +1909,9 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
     launches = read_counts()
     radix_kernels = check_radix_kernels(f"rank {rank}", call_plan(cap.args["radix_sort"]),
                                         launches["radix_sort"], read_kernels()["radix_sort"])
+    # One more frame at the last camera on every rank, under the profiler.
+    keygen_pass = check_keygen_pass(
+        device_ops(lambda: frame(shard, view, proj, cam.position)), f"rank {rank}")
     passes = {k: v / timed for k, v in timer.totals().items()}
 
     # K4 on each phase's own inputs (launches here are not the path's).
@@ -1839,6 +1964,7 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
         "k4": k4,
         "radix": {**radix, "kernels_per_sort": radix_kernels},
         "host_staged": comm.host_staged,
+        "keygen_pass": keygen_pass,
         "plan": tuple(plan),
         "elements": [int((a[2][:, 1] - a[2][:, 0]).clamp(min=0).sum()) for a, _k in phases],
     }, f"{outdir}/rank{rank}.pt")
@@ -1898,7 +2024,8 @@ def run_dist(mult: float) -> dict:
             f"{[round(statistics.median(r['frame_ms']), 3) for r in ranks]}; per pass ms per rank "
             + ", ".join(f"{p} {[round(r['passes'].get(p, 0.0), 3) for r in ranks]}"
                         for p in DIST_PASSES)
-            + f"; [live, sent, recv, dropped] per rank {stats.tolist()}; strip slots per phase "
+            + f"; [live, sent, recv, dropped] per rank {stats.tolist()}; rank 0's keygen pass "
+            f"{ranks[0]['keygen_pass']} (checked on every rank); strip slots per phase "
             f"{[r['elements'] for r in ranks]}; launches per rank "
             f"{[{k: r['launches'][k] for k in DIST_KERNELS} for r in ranks]}")
         log(f"check {what}: blend_strip == plain on the {world} phases of every rank (colour bit "
@@ -1980,10 +2107,13 @@ def phase_app(mult: float) -> dict:
 
             reset_counts()
             t0 = time.perf_counter()
-            rc = cli.main(["--ply", path, "--width", str(width), "--height", str(height),
-                           "--frames", str(APP_FRAMES), "--out", png])
-            torch.cuda.synchronize()
+            rcs = []
+            cli_ops = device_ops(lambda: rcs.append(cli.main([
+                "--ply", path, "--width", str(width), "--height", str(height),
+                "--frames", str(APP_FRAMES), "--out", png])))
+            rc = rcs[0]
             cli_s = time.perf_counter() - t0
+            keygen_pass = check_keygen_pass(cli_ops, "app CLI")
             launches = read_counts()
             if rc != 0 or any(launches[k] != APP_FRAMES for k in UNCAPPED_PATH):
                 raise RuntimeError(f"app: the CLI returned {rc}, launches {launches}")
@@ -2041,7 +2171,8 @@ def phase_app(mult: float) -> dict:
     log(f"app {APP_SCENE}: write_gaussian_ply {n} gaussians, {size} B in {write_s:.2f} s; "
         f"ply_load_s {ply_load_s:.3f} (native parser, {report!r}); numpy parser "
         f"{numpy_s:.2f} s, tables equal bit for bit; CLI --ply {width}x{height} "
-        f"{APP_FRAMES} frames in {cli_s:.2f} s with the load, launches {launches}; its PNG == "
+        f"{APP_FRAMES} frames in {cli_s:.2f} s with the load and the profiler, launches "
+        f"{launches}, a keygen pass's device ops {keygen_pass}; its PNG == "
         f"Renderer.draw bit for bit; --sort bitonic in {bitonic_s:.2f} s, launches "
         f"{bitonic_launches} ({planned} kernels a sort), its PNG == the first bit for bit; "
         f"fixture .ply vs golden 8-bit max |Δ| {d}")
@@ -2178,8 +2309,9 @@ def main() -> None:
         if k in OFF_PATH:
             entry["check_launches"] = sum(r[k]["check_launches"] for r in results.values()
                                           if k in r)
-        if k == "keygen_project":  # its counts mode (count_live_elements)
-            entry.update(count_launches=launches["keygen_count"], count_ms=res["count_ms"])
+        if k == "keygen_project":  # its counts mode (count_live_elements), its host time
+            entry.update(count_launches=launches["keygen_count"], count_ms=res["count_ms"],
+                         host_us=res["host_us"])
         if k == "radix_sort":
             entry.update(kernels_per_sort=res["kernels_per_sort"], device_ms=res["device_ms"],
                          copy_ms=res["copy_ms"], scatter_pass_ms=res["scatter_pass_ms"])

@@ -314,11 +314,11 @@ def test_new_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         tbk.blend_flat(frame, index, ranges, RenderConfig(width=64, height=48,
                                                           blend_batch_k=100))
-    counts = torch.tensor([2, 0, 3], dtype=torch.int32)
+    cum = torch.tensor([2, 2, 5], dtype=torch.int64)
     with pytest.raises(ValueError):
-        expand_kernel.expand_rows_streamed(torch.zeros((2, 3), dtype=torch.int64), counts, 8)
+        expand_kernel.expand_rows_streamed(torch.zeros((2, 3), dtype=torch.int64), cum, 8)
     with pytest.raises(ValueError):
-        expand_kernel.expand_rows_streamed(torch.zeros((2, 4), dtype=torch.int32), counts, 8)
+        expand_kernel.expand_rows_streamed(torch.zeros((2, 4), dtype=torch.int32), cum, 8)
     with pytest.raises(ValueError):
         expand_kernel.expand_rows_streamed(torch.zeros((2, 3), dtype=torch.int32),
-                                           counts.float(), 8)
+                                           cum.float(), 8)

@@ -30,7 +30,7 @@ def _run_case(counts_np, capacity, extra_cols=None, seed=0):
     )
     want = np.stack([np.asarray(c) for c in jcols])
     got, total = texp.expand_rows(
-        torch.from_numpy(np.stack(cols_np)), torch.from_numpy(counts_np), capacity
+        torch.from_numpy(np.stack(cols_np)), torch.cumsum(torch.from_numpy(counts_np), 0), capacity
     )
     got = got.numpy()
     assert int(total) == int(jtotal) == int(counts_np.sum())
@@ -82,7 +82,7 @@ def test_seven_columns_int64_counts():
     _run_case(counts, int(counts.sum()) - 17, extra_cols=extra)
     got, total = texp.expand_rows(
         torch.from_numpy(np.stack([np.arange(500, dtype=np.int32)] + extra)),
-        torch.from_numpy(counts.astype(np.int64)),
+        torch.from_numpy(np.cumsum(counts.astype(np.int64))),
         64,
     )
     assert int(total) == int(counts.sum()) and got.shape == (7, 64)
@@ -90,9 +90,12 @@ def test_seven_columns_int64_counts():
 
 def test_rejects_bad_inputs():
     cols = torch.zeros((2, 4), dtype=torch.int32)
+    cum = torch.arange(1, 5, dtype=torch.int64)
     with pytest.raises(ValueError):
-        texp.expand_rows(cols.to(torch.int64), torch.ones(4, dtype=torch.int32), 8)
+        texp.expand_rows(cols.to(torch.int64), cum, 8)
     with pytest.raises(ValueError):
-        texp.expand_rows(cols, torch.ones(5, dtype=torch.int32), 8)
+        texp.expand_rows(cols, torch.arange(1, 6, dtype=torch.int64), 8)
     with pytest.raises(ValueError):
-        texp.expand_rows(torch.zeros((8, 4), dtype=torch.int32), torch.ones(4, dtype=torch.int32), 8)
+        texp.expand_rows(torch.zeros((8, 4), dtype=torch.int32), cum, 8)
+    with pytest.raises(ValueError):
+        texp.expand_rows(cols, cum.to(torch.int32), 8)

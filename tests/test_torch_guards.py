@@ -63,7 +63,7 @@ def test_cuda_renderer_raises_without_cuda(monkeypatch):
 def test_wrappers_take_plain_versions_on_cpu():
     counts = torch.tensor([2, 0, 3], dtype=torch.int32)
     cols = torch.arange(6, dtype=torch.int32).reshape(2, 3)
-    out, total = expand_kernel.expand_rows(cols, counts, 8)
+    out, total = expand_kernel.expand_rows(cols, torch.cumsum(counts, 0), 8)
     assert out.tolist() == [[0, 0, 2, 2, 2, 0, 0, 0], [3, 3, 5, 5, 5, 0, 0, 0]]
     assert int(total) == 5
 

@@ -138,7 +138,7 @@ def test_expand_kernel_edge_cases_on_cuda():
             rng.integers(-(2**31), 2**31, size=n).astype(np.int32),
             rng.integers(-(2**31), 2**31, size=n).astype(np.int32),
         ])).cuda()
-        c = torch.from_numpy(counts).cuda()
+        c = torch.cumsum(torch.from_numpy(counts).cuda(), 0)
         launches = texp.LAUNCHES
         got, total = texp.expand_rows(cols, c, capacity)
         assert texp.LAUNCHES == launches + 1

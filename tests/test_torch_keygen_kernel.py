@@ -251,7 +251,7 @@ def test_kernels_match_plain_versions_on_cuda():
                                 assert v == 0, f"{what}: {name} differs at {v} values"
                             else:
                                 assert v[1] <= 1, f"{what}: {name} {v[0]} values, max ulp {v[1]}"
-                    cols, total = expand_kernel.expand_rows(got.cols, got.counts, capacity)
+                    cols, total = expand_kernel.expand_rows(got.cols, got.cum, capacity)
                     for a, b in zip(kk.decode_slots(cols, total, tcfg.grid_width),
                                     kk.decode_slots_plain(cols, total, tcfg.grid_width)):
                         assert torch.equal(a, b), f"{what}: decode_slots differs"

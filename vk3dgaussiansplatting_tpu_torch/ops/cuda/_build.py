@@ -86,11 +86,13 @@ SIGNATURES = {
     ),
     # out (host int32), n: csrc/radix.cu's constants
     "vk3d_radix_config": ([_P, _I32], ctypes.c_int),
-    # position, scale, rot, opacity, sh, n, params (host), thr, counts, cols
-    # (NULL: counts mode), color_alpha, cov2d, cov_inv, screen_pos, extents,
-    # flags, device, stream
-    "vk3d_keygen_project": ([_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I32, _P], ctypes.c_int),
+    # n, tiles: the int64 words of K7's scratch, or -1 (the launch's refusal)
+    "vk3d_keygen_scratch_words": ([_I64, _I64], _I64),
+    # position, scale, rot, opacity, sh, n, params (host), thr, total,
+    # extents, flags, cols (NULL: counts mode), capacity, cum, color_alpha,
+    # cov2d, cov_inv, screen_pos, scratch, scratch_words, device, stream
+    "vk3d_keygen_project": ([_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _P,
+                             _P, _P, _P, _P, _I64, _I32, _P], ctypes.c_int),
     # cols, e, total, grid_w, tile, depth, index, count, device, stream
     "vk3d_decode_slots": ([_P, _I64, _P, _I64, _P, _P, _P, _P, _I32, _P], ctypes.c_int),
     "vk3d_error_string": ([ctypes.c_int], ctypes.c_char_p),

@@ -121,7 +121,8 @@ def compact_slabs_plain(src, starts, sbase, slabw, off, counts, ep: int) -> torc
     gid_raw = compact_runs_plain(src, starts, sbase, ep, wmax)
     nchunks = ep // CHUNK
     cols, _ = expand_kernel.expand_rows_plain(
-        torch.stack([sbase // CHUNK, counts, off]).to(torch.int32), slabw // CHUNK, nchunks)
+        torch.stack([sbase // CHUNK, counts, off]).to(torch.int32),
+        torch.cumsum(slabw // CHUNK, 0, dtype=torch.int64), nchunks)
     cols = cols.to(torch.int64)
     chunk_local = (torch.arange(nchunks, device=src.device) - cols[0]) * CHUNK
     lo, hi = cols[2] - chunk_local, cols[2] + cols[1] - chunk_local

@@ -1,23 +1,26 @@
-"""keygen's per-gaussian pass (K7) and slot decode (K8) — wrappers of
-csrc/keygen.cu.
+"""keygen's per-gaussian pass with its offset scan (K7) and slot decode
+(K8) — wrappers of csrc/keygen.cu.
 
 Neither replaces a TPU kernel: they replace the part of the JAX package's
 `ops/keygen.py:126 generate_sort_elements` that XLA compiles into fused
 device loops under `jax.jit` (the view transform and cull, the depth key,
 the EWA covariance, the tile extents, the SH16 colour, the inverse
-covariance and the prefilter's keep mask), and the per-slot decode that
-turns the expansion's columns into the sort elements.
+covariance, the prefilter's keep mask and the scan of the counts), and the
+per-slot decode that turns the expansion's columns into the sort elements.
 
 `project_gaussians` launches K7 for CUDA tensors and runs
 `project_gaussians_plain` for CPU tensors; `decode_slots` launches K8 or
 runs `decode_slots_plain` the same way.  Neither falls back from one to the
-other: a failed build or launch raises, and the launchers raise
-`ValueError` for a tensor that is not on a CUDA device.  The plain versions
-are the torch code that writes XLA's float32 arithmetic out op by op
-(`render/project.py`); K7 computes the same expressions with the same
-rounding (csrc/keygen.cu, "Arithmetic").  `LAUNCHES` counts K7's full
-launches, `COUNT_LAUNCHES` its counts-only launches
-(`count_live_elements`), `DECODE_LAUNCHES` K8's.
+other: a failed build, launch or shared-memory opt-in raises, and the
+launchers raise `ValueError` for a tensor that is not on a CUDA device.
+The plain versions are the torch code that writes XLA's float32 arithmetic
+out op by op (`render/project.py`) and scans with `torch.cumsum`; K7
+computes the same expressions with the same rounding (csrc/keygen.cu,
+"Arithmetic") and the scan by decoupled look-back in the same launch, so a
+card keygen pass is K7, K1's partition search and expansion, and K8, with
+no PyTorch kernel between them.  `LAUNCHES` counts K7's full launches,
+`COUNT_LAUNCHES` its counts-only launches (`count_live_elements`),
+`DECODE_LAUNCHES` K8's.
 """
 
 from __future__ import annotations
@@ -41,9 +44,11 @@ F32 = np.float32
 
 
 class Projection(NamedTuple):
-    """Per-gaussian results of keygen's projection pass.
+    """Per-gaussian results of keygen's projection pass.  The emit counts
+    w*h (0 if culled or filtered out) are not kept: `cum` holds them.
 
-    counts:  [N] int64 emit counts w*h (0 if culled or filtered out)
+    total:   [] int64 sum of the counts, unclamped
+    cum:     [N] int64 inclusive scan of the counts (what K1 reads)
     cols:    [6, N] int32 packed rows K1 expands: id, exclusive offset
              (clamped to the capacity), max(w, 1), min_x, min_y, the depth
              key's int32 bits
@@ -52,10 +57,11 @@ class Projection(NamedTuple):
     extents: [N, 4] int32 (min_x, min_y, max_x, max_y), with `with_aux`
     flags:   [N] uint8, bit 0 visible, bit 1 kept by the prefilter, with
              `with_aux`
-    In the counts mode only `counts` (and the aux outputs) are set.
+    In the counts mode only `total` and the aux outputs are set.
     """
 
-    counts: torch.Tensor
+    total: torch.Tensor
+    cum: torch.Tensor | None = None
     cols: torch.Tensor | None = None
     color_alpha: torch.Tensor | None = None
     cov2d: torch.Tensor | None = None
@@ -121,12 +127,6 @@ def cull_mask(pos_view, ndc, config: RenderConfig) -> torch.Tensor:
     return near_ok & (ndc[:, 0].abs() <= lim) & (ndc[:, 1].abs() <= lim)
 
 
-def _offsets(counts: torch.Tensor, capacity: int) -> torch.Tensor:
-    """Row 1 of the packed columns: the exclusive scan, clamped to the
-    capacity (only rows with offset < capacity are read)."""
-    return (torch.cumsum(counts, 0) - counts).clamp(max=capacity)
-
-
 def project_gaussians_plain(table, view, proj, cam_pos, config: RenderConfig, capacity=None,
                             thr_dilated=None, *, with_aux=False) -> Projection:
     """K7's plain version: `render/project.py`'s float32 torch code, XLA's
@@ -151,7 +151,7 @@ def project_gaussians_plain(table, view, proj, cam_pos, config: RenderConfig, ca
         aux = {"extents": extents.to(torch.int32),
                "flags": (visible.to(torch.uint8) | (keep.to(torch.uint8) << 1))}
     if capacity is None:
-        return Projection(counts, **aux)
+        return Projection(counts.sum(), **aux)
 
     # SH colour (InitSortList.comp:122-126).
     cam = torch.as_tensor(cam_pos, device=table.position.device)
@@ -166,16 +166,17 @@ def project_gaussians_plain(table, view, proj, cam_pos, config: RenderConfig, ca
     cov_inv = torch.stack([cov2d[:, 2], -cov2d[:, 1], cov2d[:, 0]], dim=-1) * det_inv[:, None]
     alpha = torch.where(det_ok, table.opacity, 0.0)
     n = table.position.shape[0]
+    cum = torch.cumsum(counts, 0)
     cols = torch.stack([
         torch.arange(n, device=counts.device, dtype=torch.int64),
-        _offsets(counts, capacity),
+        (cum - counts).clamp(max=capacity),  # the exclusive offsets, clamped
         w.clamp(min=1),
         extents[:, 0],
         extents[:, 1],
         torch.where(depth >= 2**31, depth - 2**32, depth),  # the key's int32 bits
     ]).to(torch.int32)
-    return Projection(counts, cols, torch.cat([rgb, alpha[:, None]], dim=-1), cov2d, cov_inv,
-                      screen_pos, **aux)
+    return Projection(counts.sum(), cum, cols, torch.cat([rgb, alpha[:, None]], dim=-1), cov2d,
+                      cov_inv, screen_pos, **aux)
 
 
 def keygen_params(view, proj, cam_pos, config: RenderConfig) -> KeygenParams:
@@ -202,6 +203,44 @@ def keygen_params(view, proj, cam_pos, config: RenderConfig) -> KeygenParams:
     return p
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, contiguous and 16-byte aligned (K7 stages its rows 16 B at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _outputs(n: int, dev: torch.device, scratch_words: int | None, with_aux: bool):
+    """K7's output tensors, unset, as a Projection, and the full mode's
+    scratch of `scratch_words` int64 words (the ticket and a status word a
+    block, as vk3d_keygen_scratch_words counts them; the launcher zeroes
+    it); `scratch_words=None` is the counts mode.  Three allocations: the
+    int64 results (total, cum, scratch) are views of one, the float32 frame
+    data of another (each field 16-byte aligned), the int32 columns a
+    third."""
+    full = scratch_words is not None
+    ints = torch.empty(((1 + n + scratch_words) if full else 1,), dtype=torch.int64, device=dev)
+    out = Projection(ints[0])
+    scratch = None
+    if full:
+        def aligned(k):  # float offsets a multiple of 4 (16 bytes)
+            return -(-k // 4) * 4
+
+        inv = aligned(7 * n)
+        scr = aligned(inv + 3 * n)
+        floats = torch.empty((scr + 2 * n,), dtype=torch.float32, device=dev)
+        out = out._replace(cum=ints[1: n + 1],
+                           cols=torch.empty((NUM_COLS, n), dtype=torch.int32, device=dev),
+                           color_alpha=floats[:4 * n].view(n, 4),
+                           cov2d=floats[4 * n: 7 * n].view(n, 3),
+                           cov_inv=floats[inv: inv + 3 * n].view(n, 3),
+                           screen_pos=floats[scr: scr + 2 * n].view(n, 2))
+        scratch = ints[n + 1:]
+    if with_aux:
+        out = out._replace(extents=torch.empty((n, 4), dtype=torch.int32, device=dev),
+                           flags=torch.empty((n,), dtype=torch.uint8, device=dev))
+    return out, scratch
+
+
 def _launch_project(table, view, proj, cam_pos, config: RenderConfig, capacity=None,
                     thr_dilated=None, *, with_aux=False) -> Projection:
     dev = table.position.device
@@ -209,39 +248,30 @@ def _launch_project(table, view, proj, cam_pos, config: RenderConfig, capacity=N
         raise ValueError(f"unsupported device {dev}")
     _check(table, thr_dilated, config)
     n = table.position.shape[0]
-    position, scale, rot, opacity = (t.contiguous() for t in
-                                     (table.position, table.scale, table.rot, table.opacity))
-    sh = table.sh.contiguous()
-    if sh.data_ptr() % 16:
-        sh = sh.clone()  # the SH row is read as float4s
+    lib = _build.load_library()
+    words = lib.vk3d_keygen_scratch_words(n, config.num_tiles)
+    if words < 0:
+        raise ValueError(f"{n} gaussians x {config.num_tiles} tiles: past K7's limits (ids in "
+                         f"int32, count sums in the look-back's 62-bit status words)")
+    position, scale, rot, opacity, sh = (_aligned(t) for t in (
+        table.position, table.scale, table.rot, table.opacity, table.sh))
     thr = thr_dilated.contiguous() if thr_dilated is not None else None
     params = keygen_params(view, proj, cam_pos, config)
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    out = Projection(empty(n, dtype=torch.int64))
-    if capacity is not None:
-        out = out._replace(cols=empty(NUM_COLS, n, dtype=torch.int32), color_alpha=empty(n, 4),
-                           cov2d=empty(n, 3), cov_inv=empty(n, 3), screen_pos=empty(n, 2))
-    if with_aux:
-        out = out._replace(extents=empty(n, 4, dtype=torch.int32),
-                           flags=empty(n, dtype=torch.uint8))
+    out, scratch = _outputs(n, dev, None if capacity is None else words, with_aux)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = _build.load_library()
     err = lib.vk3d_keygen_project(
         position.data_ptr(), scale.data_ptr(), rot.data_ptr(), opacity.data_ptr(),
-        sh.data_ptr(), n, ctypes.addressof(params), ptr(thr), out.counts.data_ptr(),
-        ptr(out.cols), ptr(out.color_alpha), ptr(out.cov2d), ptr(out.cov_inv),
-        ptr(out.screen_pos), ptr(out.extents), ptr(out.flags), dev.index,
+        sh.data_ptr(), n, ctypes.addressof(params), ptr(thr),
+        out.total.data_ptr(), ptr(out.extents), ptr(out.flags), ptr(out.cols),
+        -1 if capacity is None else capacity, ptr(out.cum), ptr(out.color_alpha),
+        ptr(out.cov2d), ptr(out.cov_inv), ptr(out.screen_pos), ptr(scratch),
+        0 if scratch is None else scratch.numel(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(err, "keygen_project")
-    if capacity is not None:
-        out.cols[1] = _offsets(out.counts, capacity)
     return out
 
 
@@ -255,7 +285,7 @@ def project_gaussians(table, view, proj, cam_pos, config: RenderConfig, capacity
         position (numpy, taken as float32).
       config: render config (`sh_mode`, the tile grid, the constants).
       capacity: sort capacity E, which clamps the offset row; None is the
-        counts mode (`count_live_elements`): only `counts`.
+        counts mode (`count_live_elements`): only `total`.
       thr_dilated: optional [num_tiles] int64 dilated threshold map
         (prefilter.dilate_thresholds): the prefilter's keep mask ANDs the
         cull.
@@ -339,7 +369,7 @@ def decode_slots(cols: torch.Tensor, total: torch.Tensor, grid_width: int):
 
 
 FLOAT_FIELDS = ("color_alpha", "cov2d", "cov_inv", "screen_pos")
-INT_FIELDS = ("counts", "cols", "extents", "flags")
+INT_FIELDS = ("total", "cum", "cols", "extents", "flags")
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -19,12 +19,14 @@ Integer types: tile, depth and index are int64 tensors holding the uint32
 values of the JAX package (SENTINEL included); the scan is int64, where JAX's
 is int32 and would wrap past 2^31 elements.
 
-Where it runs: on the card the per-gaussian pass is K7
-(`cuda/keygen_kernel.project_gaussians`, csrc/keygen.cu), then the scan
-(`torch.cumsum`) fills the offset row, K1 or K1' expands the rows, and K8
-(`decode_slots`) turns the slots into the sort elements.  On CPU tensors
-the same wrappers run their plain versions (`project_gaussians_plain`, the
-float32 torch code of render/project.py, and `decode_slots_plain`).
+Where it runs: on the card the per-gaussian pass and the scan are one
+kernel, K7 (`cuda/keygen_kernel.project_gaussians`, csrc/keygen.cu: the
+offset row, the inclusive scan `cum` and the total), then K1 or K1' expands
+the rows over K7's `cum`, and K8 (`decode_slots`) turns the slots into the
+sort elements, with no PyTorch kernel between them.  On CPU tensors the
+same wrappers run their plain versions (`project_gaussians_plain`, the
+float32 torch code of render/project.py with `torch.cumsum`, and
+`decode_slots_plain`).
 Nothing on the card falls back to a plain version: a failed build or
 launch raises.
 """
@@ -80,10 +82,9 @@ def count_live_elements(table, view, proj, cam_pos, config, depth_thr=None):
     """Live sort-element count without the expansion (projection, extents
     and the optional prefilter only), as a [] int64 tensor: the steady
     switch's feasibility probe (pipeline.ChainedTemporalPlan) and the
-    calibration's count.  K7 in its counts mode on the card."""
+    calibration's count.  K7 in its counts mode on the card, one launch."""
     thr = None if depth_thr is None else prefilter.dilate_thresholds(depth_thr, config)
-    p = keygen_kernel.project_gaussians(table, view, proj, cam_pos, config, None, thr)
-    return p.counts.sum()
+    return keygen_kernel.project_gaussians(table, view, proj, cam_pos, config, None, thr).total
 
 
 def generate_sort_elements(
@@ -123,15 +124,14 @@ def generate_sort_elements(
         raise ValueError(f"unknown expansion_method {config.expansion_method!r}")
     thr = None if depth_thr is None else prefilter.dilate_thresholds(depth_thr, config)
     p = keygen_kernel.project_gaussians(table, view, proj, cam_pos, config, capacity, thr)
-    packed_cols, counts = p.cols, p.counts
     method = config.expansion_method
     with section(timer, "expand"):
         if method == "repeat":
-            cols, total = expand_kernel.expand_rows_plain(packed_cols, counts, capacity)
+            cols, total = expand_kernel.expand_rows_plain(p.cols, p.cum, capacity)
         elif method == "stream" or depth_thr is not None:
-            cols, total = expand_kernel.expand_rows_streamed(packed_cols, counts, capacity)
+            cols, total = expand_kernel.expand_rows_streamed(p.cols, p.cum, capacity)
         else:
-            cols, total = expand_kernel.expand_rows(packed_cols, counts, capacity)
+            cols, total = expand_kernel.expand_rows(p.cols, p.cum, capacity)
 
     elements = SortElements(*keygen_kernel.decode_slots(cols, total, config.grid_width))
     frame = GaussianFrameData(p.color_alpha, p.cov2d, p.cov_inv, p.screen_pos)
