@@ -1,0 +1,6 @@
+"""sort_ms: ms a frame in the pipeline's `sort` section, summed over the
+traced window and divided by its frames."""
+
+
+def read(r):
+    return r.per_frame_ms("sort")
