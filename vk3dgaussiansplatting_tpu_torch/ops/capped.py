@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from ..core.config import SENTINEL, RenderConfig
-from ..utils.timing import section
+from ..utils.timing import read_back, section
 from .cuda import blend_kernel, compact_kernel
 from .keygen import GaussianFrameData, SortElements
 from .search import two_level_lex_search
@@ -228,10 +228,11 @@ def capped_layout(elements, ranges, frame, config: RenderConfig, caps):
     return _layout(elements, ranges, config, c, thr, ep)
 
 
-def blend_tiles_capped(elements, ranges, frame, config: RenderConfig):
+def blend_tiles_capped(elements, ranges, frame, config: RenderConfig, *, timer=None):
     """Static-cap capped blend, exact or the full blend; [H, W, 3].
 
-    Static caps carry no hysteresis, so validation is at the plain stop."""
+    Static caps carry no hysteresis, so validation is at the plain stop.
+    `timer` records the branch's read-back as a `sync` span."""
     cap = config.blend_depth_cap
     assert 0 < cap <= config.blend_cap_max
     blend = blend_kernel.blend_flat
@@ -241,7 +242,7 @@ def blend_tiles_capped(elements, ranges, frame, config: RenderConfig):
     pranges = torch.stack([lay.pstart, lay.pstart + lay.counts], dim=1)
     img, t_out = blend(frame, lay.gid, pranges, config, with_t=True)
     valid = (lay.r <= caps) | (t_out.amax(dim=1) < _f32(config.transmittance_stop))
-    if not bool(valid.all() & lay.fits):  # the frame's host sync
+    if not read_back(timer, valid.all() & lay.fits):  # the frame's host sync
         img = blend(frame, elements.index, ranges, config)
     return img
 
@@ -358,7 +359,7 @@ def capped_finish(lay: CappedLayout, caps, elements, ranges, frame, config: Rend
             & torch.where(valid, True, r <= PATCH_WMAX - SEG_ALIGN).all()
         )
         # The frame's one deliberate host synchronisation: the branch below.
-        fast, patch = torch.stack([ok, patchable]).tolist()
+        fast, patch = read_back(timer, torch.stack([ok, patchable]))
     PATH_COUNTS["fast" if fast else "patch" if patch else "full"] += 1
     with section(timer, "patch"):
         if not fast:

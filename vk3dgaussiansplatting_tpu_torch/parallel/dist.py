@@ -50,7 +50,7 @@ from ..ops import keygen as keygen_ops
 from ..ops import ranges as ranges_ops
 from ..ops import sort as sort_ops
 from ..ops.cuda import blend_kernel
-from ..utils.timing import section
+from ..utils.timing import read_back, section
 
 _DEPTH_SAMPLE = 512  # per-rank depth-quantile sample size
 # Exchange words per slot: tile, depth, global id, then the 9 feature words
@@ -208,9 +208,10 @@ def make_distributed_render(
     show in the stats).  stats: [1, 4] int64
     [live_local, sent_live, recv_live, dropped].  table_shard: this rank's
     `shard_table` of a `_pad_table`-padded table, on `comm.device`.  `timer`
-    (utils.timing.CudaPassTimer) records keygen (expand inside), bucket,
-    exchange, sort, ranges and blend; with gloo on a GPU, exchange includes
-    the copies through host memory."""
+    (utils.timing.CudaPassTimer) records the `frame` span and under it
+    keygen (expand inside), bucket, exchange, sort, ranges (with the strip
+    windows' read-back, a `sync`) and blend; with gloo on a GPU, exchange
+    includes the copies through host memory."""
     ndev = dist.num_devices
     if comm.world != ndev:
         raise ValueError(f"the plan is for {ndev} ranks, the group has {comm.world}")
@@ -225,6 +226,10 @@ def make_distributed_render(
     n_words = _KEY_WORDS + (_FEATURE_WORDS if route_features else 0)
 
     def frame(table, view, proj, cam_pos, timer=None):
+        with section(timer, "frame"):
+            return _frame(table, view, proj, cam_pos, timer)
+
+    def _frame(table, view, proj, cam_pos, timer):
         dev = comm.device
         with section(timer, "keygen"):
             elements, frame_data = keygen_ops.generate_sort_elements(
@@ -279,7 +284,7 @@ def make_distributed_render(
             bounds = torch.searchsorted(st, probes)
             s0_all = torch.clamp(bounds[:-1], max=e_recv - strip_cap)
             dropped = torch.clamp(bounds[1:] - s0_all - strip_cap, min=0).sum()
-            s0_host = s0_all.tolist()
+            s0_host = read_back(timer, s0_all)
 
         colors = torch.zeros((tiles_per_dev, p, 3), device=dev)
         logt = torch.zeros((tiles_per_dev, p), device=dev)

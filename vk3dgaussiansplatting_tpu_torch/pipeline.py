@@ -34,7 +34,7 @@ from .ops import keygen as keygen_ops
 from .ops import ranges as ranges_ops
 from .ops import sort as sort_ops
 from .ops.cuda import blend_kernel
-from .utils.timing import section
+from .utils.timing import count, read_back, section
 
 
 class FrameOutputs(NamedTuple):
@@ -80,17 +80,20 @@ def render_frame(
     """The full frame: the K2 blend, or with `blend_depth_cap > 0` the
     static-cap capped blend.  The kernels' wrappers run the plain versions
     on CPU tensors.  `timer` (utils.timing.CudaPassTimer) records
-    the passes keygen, expand (inside keygen), sort, ranges and blend."""
+    the passes keygen, expand (inside keygen), sort, ranges, blend and
+    quantize."""
     elements, ranges, frame = _sorted_frame(
         table, view, proj, cam_pos, config, capacity, timer
     )
     with section(timer, "blend"):
         if config.blend_depth_cap > 0:
-            image = capped_ops.blend_tiles_capped(elements, ranges, frame, config)
+            image = capped_ops.blend_tiles_capped(elements, ranges, frame, config, timer=timer)
         else:
             image = blend_kernel.blend_tiles(elements, ranges, frame, config)
+    with section(timer, "quantize"):
+        image_u8 = blend_ops.quantize_image(image)
     return FrameOutputs(
-        image_u8=blend_ops.quantize_image(image),
+        image_u8=image_u8,
         image=image,
         num_elements=elements.count,
     )
@@ -111,17 +114,19 @@ def render_frame_temporal(
 
     `caps` is the previous frame's cap state (capped_ops.init_caps to
     start); returns (FrameOutputs, caps_next).  Keygen is unfiltered, as in
-    the JAX package.  `timer` records keygen, expand, sort, ranges and the
-    capped passes layout, blend, policy and patch."""
+    the JAX package.  `timer` records keygen, expand, sort, ranges, the
+    capped passes layout, blend, policy and patch, and quantize."""
     elements, ranges, frame = _sorted_frame(
         table, view, proj, cam_pos, config, capacity, timer
     )
     image, caps_next, ok = capped_ops.blend_tiles_capped_temporal(
         elements, ranges, frame, config, caps, timer=timer
     )
+    with section(timer, "quantize"):
+        image_u8 = blend_ops.quantize_image(image)
     return (
         FrameOutputs(
-            image_u8=blend_ops.quantize_image(image),
+            image_u8=image_u8,
             image=image,
             num_elements=elements.count,
             ok=ok,
@@ -132,7 +137,8 @@ def render_frame_temporal(
 
 class _PendingFlag:
     """A device bool copied to pinned host memory without blocking;
-    `bool()` waits for the copy's event (long done a window later)."""
+    `tolist()` (through `utils.timing.read_back`) waits for the copy's
+    event, long done a window later."""
 
     def __init__(self, flag: torch.Tensor):
         self._host = torch.empty((), dtype=torch.bool, pin_memory=True)
@@ -140,9 +146,9 @@ class _PendingFlag:
         self._event = torch.cuda.Event()
         self._event.record()
 
-    def __bool__(self) -> bool:
+    def tolist(self) -> bool:
         self._event.synchronize()
-        return bool(self._host)
+        return self._host.item()
 
 
 class ChainedTemporalPlan:
@@ -241,22 +247,24 @@ class ChainedTemporalPlan:
     def take_overflow_acc(self):
         """Pop the accumulated steady-overflow flag (None if no steady frame
         ran since the last call).  On CUDA its host copy starts without
-        blocking: read it a window later (`bool()`), stale but sync-free."""
+        blocking: read it a window later (`read_back`), stale but
+        sync-free."""
         acc, self._ovf_acc = self._ovf_acc, None
         if acc is not None and acc.device.type == "cuda":
             return _PendingFlag(acc)
         return acc
 
-    def try_steady_switch(self, table, view, proj, cam_pos, probes: int = 3):
+    def try_steady_switch(self, table, view, proj, cam_pos, probes: int = 3, *, timer=None):
         """Probe the prefiltered live count and switch to the steady set.
 
         Reads the live count back (host syncs: keep it out of timing) and
         flips to steady mode if the filtered list fits the smaller capacity,
         then runs `probes` steady frames and reverts on an overflow.
-        Returns True on switch."""
+        Returns True on switch.  `timer` counts `steady_switch` or
+        `steady_declined` and records the probe frames' sections."""
         if not self.prefilter_on or self.mode == "steady" or self.steady_declined:
             return self.mode == "steady"
-        est = int(keygen_ops.count_live_elements(
+        est = read_back(timer, keygen_ops.count_live_elements(
             table, view, proj, cam_pos, self.config, depth_thr=self.state.thr
         ))
         if est >= int(self.steady_capacity * 0.97):
@@ -265,24 +273,28 @@ class ChainedTemporalPlan:
                 f">= {self.steady_capacity/1e6:.2f}M steady capacity"
             )
             self.steady_declined = True
+            count(timer, "steady_declined")
             return False
         self.mode = "steady"
         for j in range(probes):
-            self.frame(table, view, proj, cam_pos)
-            cnt = int(self.last_count)
+            self.frame(table, view, proj, cam_pos, timer=timer)
+            cnt, *stats = read_back(timer, torch.cat([self.last_count.reshape(1),
+                                                      self.last_stats]))
             self._log(
                 f"  steady probe {j}: live={cnt/1e6:.2f}M/{self.steady_capacity/1e6:.2f}M "
-                f"stats={self.last_stats.tolist()}"
+                f"stats={stats}"
             )
             if cnt >= self.steady_capacity:
                 self.mode = "full"
                 self.steady_declined = True
+                count(timer, "steady_declined")
                 self._log("steady capacity overflow; staying on full set")
                 # The overflow frame dropped arbitrary elements; let the
                 # temporal state re-validate on the full set.
                 for _ in range(2):
-                    self.frame(table, view, proj, cam_pos)
+                    self.frame(table, view, proj, cam_pos, timer=timer)
                 return False
+        count(timer, "steady_switch")
         return True
 
 
@@ -350,7 +362,7 @@ class Renderer:
         plan = self._plan
         args = (self.table, view, proj, cam_pos)
         if plan.mode == "full" and plan.prefilter_on and plan.frames >= self.WARMUP_FRAMES:
-            plan.try_steady_switch(*args)
+            plan.try_steady_switch(*args, timer=timer)
         image = plan.frame(*args, timer=timer)
         if plan.mode == "steady" and plan.frames % 8 == 0:
             # Fetch-free overflow check: pop the device OR of this window's
@@ -359,23 +371,32 @@ class Renderer:
             pending = plan.take_overflow_acc()
             stale = self._ovf_pending
             self._ovf_pending = pending
-            if stale is not None and bool(stale):
+            if stale is not None and read_back(timer, stale):
                 # The filtered list outgrew the steady capacity: those frames
                 # were flagged; revert to the full set, re-probe later.
                 plan.mode = "full"
                 plan.steady_declined = False
                 self._ovf_pending = None
+                count(timer, "steady_revert")
+        with section(timer, "quantize"):
+            image_u8 = blend_ops.quantize_image(image)
         return FrameOutputs(
-            image_u8=blend_ops.quantize_image(image),
+            image_u8=image_u8,
             image=image,
             num_elements=plan.last_count,
             ok=plan.last_ok,
         )
 
     def draw(self, camera, timer=None) -> FrameOutputs:
-        """Render one frame from a `render.camera.Camera`."""
+        """Render one frame from a `render.camera.Camera`.  `timer`
+        (utils.timing.CudaPassTimer) records the frame as one `frame` span
+        with the passes' spans under it."""
         if self.table is None:
             raise RuntimeError("call init_for_scene() first")
+        with section(timer, "frame"):
+            return self._draw(camera, timer)
+
+    def _draw(self, camera, timer) -> FrameOutputs:
         view, proj = camera.matrices()
         if self._plan is not None:
             return self._draw_plan(view, proj, camera.position, timer)

@@ -1,64 +1,138 @@
-"""Per-pass GPU timing with CUDA events, and the reference's benchmark
-protocol (port of `vk3dgaussiansplatting_tpu.utils.timing`).
+"""The port's tracing: CUDA events around every pass or a host span for
+it, counters, and the frame's blocking reads.
 
 The reference's `RECORD_GPU_TIMES` mode (Renderer.h:35-36, Renderer.cpp:
 458-510) writes GPU timestamps around each logical pass.  `CudaPassTimer` is
 the same on PyTorch's current stream: a pass wrapped in
 `section(timer, name)` records an event before and after it, and nothing
-waits for the device until `summary()`.  With `timer=None` a section costs
-nothing, so the frame code carries the sections unconditionally.
+waits for the device until `summary()`; `frame`, `quantize` and `sync`
+get none (`HOST_ONLY`).  `CudaPassTimer(device_events=False)`, the
+host-only tracer, needs no CUDA device and records a host span for every
+section instead: `time.perf_counter_ns()` at its start and end, its
+frame, its parent.  Either way a section is a
+`torch.profiler.record_function("vk3d/<name>")`, so under torch.profiler
+the pass is a CPU event on the device trace's clock.  With `timer=None` a
+section is a `nullcontext`, so the frame code carries the sections
+unconditionally.
 
-Sections of the frame: keygen (expand inside it), sort, ranges, and then
-either blend (K2, or the whole static-cap blend) or the temporal capped
-passes: layout (the tiles' counts and slabs, and K5's id copy),
+Spans of a frame: `frame` (Renderer.draw, and the distributed frame) is the
+root; under it keygen (expand inside it), sort, ranges, and then either
+blend (K2, or the whole static-cap blend) and quantize, or the temporal
+capped passes: layout (the tiles' counts and slabs, and K5's id copy),
 blend (K3 with its transmittance), policy (validation and the caps and
 threshold update, up to the branch read-back) and patch (the patch pass or
-full fallback; empty on fast-path frames).  The distributed frame
-(parallel/dist.py): keygen, bucket, exchange (the collectives, with the
-copies through host memory where gloo serves a GPU), sort, ranges and blend
-(K4, once per systolic phase).
+full fallback; empty on fast-path frames), then quantize.  The distributed
+frame (parallel/dist.py): keygen, bucket, exchange (the collectives, with
+the copies through host memory where gloo serves a GPU), sort, ranges and
+blend (K4, once per systolic phase).
 
-`RunningAverage`, `time_fn` and `time_fn_avg_protocol` are the reference's
-`RECORD_GPU_TIMES` protocol (1000 warm-up frames, then a 1000-frame running
-mean, Renderer.cpp:477-487): on CUDA each call is timed with CUDA events
-around it on the current stream (the device's time, not the host's), on the
-CPU with `time.perf_counter`.  Both return seconds, as the JAX functions do.
+`read_back(timer, tensor)` is the frame paths' one way to read a device
+value on the host: a `sync` span around the wait, so the number of `sync`
+spans is the frame's host synchronisations, and a span's self time (its
+duration less its children's) is its host time outside them.  `count`
+counts events that are not spans (the chained plan's steady switch,
+declined switch and revert).
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import statistics
 import time
-from typing import Callable
+from typing import NamedTuple
 
 import torch
 
-# Reference protocol constants (Renderer.h:142-143).
-WAIT_ELAPSED_WARMUP_FRAMES_FOR_AVG = 1000
-NUM_AVG_FRAMES = 1000
+FRAME = "frame"  # the root span of one frame
+SYNC = "sync"  # a blocking read of a device value (`read_back`)
+PROFILER_PREFIX = "vk3d/"  # the sections' torch.profiler event names
+# Sections that get no CUDA events: the frame's device time is the
+# caller's frame time, no metric reads quantize's, and a sync sits inside
+# a pass.  Each added event pair, like the host spans, moved a
+# section of a benchmark's traced window by 2-5% on an H100.
+HOST_ONLY = frozenset({FRAME, "quantize", SYNC})
+
+
+class Span(NamedTuple):
+    """One section's host span: `perf_counter_ns` at its start and end,
+    and the time its child spans cover.  `frame` is the index of the
+    enclosing `frame` span in the timer (None outside one); `parent` the
+    enclosing span's name (None at the root)."""
+
+    name: str
+    frame: int | None
+    parent: str | None
+    start_ns: int
+    end_ns: int
+    child_ns: int
+
+    @property
+    def self_ns(self) -> int:
+        return self.end_ns - self.start_ns - self.child_ns
 
 
 class CudaPassTimer:
-    """Collects (start, end) CUDA event pairs per pass name."""
+    """Per section, a (start, end) CUDA event pair (`device_events`, but
+    for `HOST_ONLY`), or a host span (`device_events=False`); and the
+    `count` counters.  The two modes do not mix: a span's host work moves
+    the event times around it."""
 
-    def __init__(self) -> None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("CudaPassTimer needs a CUDA device")
+    def __init__(self, device_events: bool = True) -> None:
+        if device_events and not torch.cuda.is_available():
+            raise RuntimeError("CudaPassTimer needs a CUDA device (device_events=False does not)")
+        self.device_events = device_events
         self._events: dict[str, list[tuple[torch.cuda.Event, torch.cuda.Event]]] = {}
+        self._spans: list[Span] = []
+        self._counts: dict[str, int] = {}
+        self._open: list[list] = []  # [name, start_ns, child_ns] of the open spans
+        self._frames = 0  # root `frame` spans opened
+        self._frame: int | None = None  # the open frame's index
 
     @contextlib.contextmanager
     def section(self, name: str):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
-        self._events.setdefault(name, []).append((start, end))
+        # record_function costs ~10 us even with no profiler to record it.
+        with (torch.profiler.record_function(PROFILER_PREFIX + name)
+              if torch._C._autograd._profiler_enabled() else contextlib.nullcontext()):
+            if not self.device_events:
+                with self._span(name):
+                    yield
+            elif name in HOST_ONLY:
+                yield
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                yield
+                end.record()
+                self._events.setdefault(name, []).append((start, end))
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        parent = self._open[-1][0] if self._open else None
+        if name == FRAME and parent is None:
+            self._frame = self._frames
+            self._frames += 1
+        frame = self._frame
+        entry = [name, time.perf_counter_ns(), 0]
+        self._open.append(entry)
+        try:
+            yield
+        finally:
+            t1 = time.perf_counter_ns()
+            self._open.pop()
+            if not self._open:
+                self._frame = None
+        if self._open:
+            self._open[-1][2] += t1 - entry[1]
+        self._spans.append(Span(name, frame, parent, entry[1], t1, entry[2]))
+        self._counts[name] = self._counts.get(name, 0) + 1
+
+    def count(self, name: str) -> None:
+        self._counts[name] = self._counts.get(name, 0) + 1
 
     def summary(self) -> dict[str, float]:
-        """Synchronize and return each pass's median duration in ms."""
+        """Synchronize and return each pass's median duration in ms on the
+        device (CUDA events)."""
         torch.cuda.synchronize()
         return {
             name: statistics.median(s.elapsed_time(e) for s, e in pairs)
@@ -66,13 +140,36 @@ class CudaPassTimer:
         }
 
     def totals(self) -> dict[str, float]:
-        """Synchronize and return each pass's summed duration in ms (for
-        passes entered several times a frame, as in the distributed frame)."""
+        """Synchronize and return each pass's summed duration in ms on the
+        device (CUDA events; for passes entered several times a frame, as in
+        the distributed frame)."""
         torch.cuda.synchronize()
         return {
             name: sum(s.elapsed_time(e) for s, e in pairs)
             for name, pairs in self._events.items()
         }
+
+    def host_totals(self) -> dict[str, tuple[float, float]]:
+        """Each section's (total ms, self ms) on the host, summed over its
+        spans (`device_events=False`): self is the duration less the child
+        spans' (a `sync` among them), so the self times add up to the
+        frames' totals."""
+        out: dict[str, list[int]] = {}
+        for s in self._spans:
+            acc = out.setdefault(s.name, [0, 0])
+            acc[0] += s.end_ns - s.start_ns
+            acc[1] += s.self_ns
+        return {name: (t / 1e6, own / 1e6) for name, (t, own) in out.items()}
+
+    def counts(self) -> dict[str, int]:
+        """The `count` counters and, with `device_events=False`, the spans
+        by name (`frame`: frames, `sync`: host synchronisations)."""
+        return dict(self._counts)
+
+    def spans(self) -> list[Span]:
+        """Every closed span, in the order they closed
+        (`device_events=False`)."""
+        return list(self._spans)
 
 
 def section(timer: CudaPassTimer | None, name: str):
@@ -80,75 +177,16 @@ def section(timer: CudaPassTimer | None, name: str):
     return contextlib.nullcontext() if timer is None else timer.section(name)
 
 
-@dataclasses.dataclass
-class RunningAverage:
-    """The reference's running-mean update (Renderer.cpp:477-487)."""
-
-    warmup_frames: int = WAIT_ELAPSED_WARMUP_FRAMES_FOR_AVG
-    avg_frames: int = NUM_AVG_FRAMES
-    _seen: int = 0
-    _count: int = 0
-    _mean: float = 0.0
-
-    def add(self, value: float) -> None:
-        self._seen += 1
-        if self._seen <= self.warmup_frames:
-            return
-        if self._count < self.avg_frames:
-            self._count += 1
-            self._mean += (value - self._mean) / self._count
-
-    @property
-    def done(self) -> bool:
-        return self._count >= self.avg_frames
-
-    @property
-    def mean(self) -> float:
-        return self._mean
+def count(timer: CudaPassTimer | None, name: str) -> None:
+    """`timer.count(name)`; nothing when timer is None."""
+    if timer is not None:
+        timer.count(name)
 
 
-def _timer(device):
-    """A function timing one call of `fn` in seconds on `device`."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        def run_cpu(fn):
-            t0 = time.perf_counter()
-            fn()
-            return time.perf_counter() - t0
-        return run_cpu
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
-
-    def run_cuda(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-    return run_cuda
-
-
-def time_fn(fn: Callable[[], object], *, warmup: int = 3, iters: int = 20,
-            device="cuda") -> float:
-    """Median seconds of `fn` over `iters` calls after `warmup` calls: CUDA
-    events on a CUDA device, `perf_counter` on the CPU."""
-    run = _timer(device)
-    for _ in range(warmup):
-        run(fn)
-    return statistics.median(run(fn) for _ in range(iters))
-
-
-def time_fn_avg_protocol(fn: Callable[[], object], *,
-                         warmup: int = WAIT_ELAPSED_WARMUP_FRAMES_FOR_AVG,
-                         avg: int = NUM_AVG_FRAMES, device="cuda") -> float:
-    """The reference protocol exactly: `warmup` frames, then the `avg`-frame
-    running mean, in seconds.  Expensive: for headline numbers only."""
-    run = _timer(device)
-    acc = RunningAverage(warmup_frames=warmup, avg_frames=avg)
-    while not acc.done:
-        acc.add(run(fn))
-    return acc.mean
+def read_back(timer: CudaPassTimer | None, value):
+    """`value.tolist()` inside a `sync` section: a device tensor's value on
+    the host (a Python scalar for a 0-d tensor), or a pending host copy's
+    (`pipeline._PendingFlag`).  The frame paths read the device only
+    through it, so the `sync` spans count their host synchronisations."""
+    with section(timer, SYNC):
+        return value.tolist()
