@@ -65,7 +65,10 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            ~193 B a live slot at 6 passes) and the copy yardstick (copy_ of
            the live slots' [3, n] uint32 records: what one pass must move,
            at the card's attainable rate).  The scatter's phases come from
-           `radix_phases`, run by hand (an instrumented build of radix.cu)
+           `radix_phases`, run by hand (an instrumented build of radix.cu):
+           per pass the µs of each step a partition, the look-back's
+           length, staged_ahead_share, stage_wait_us and
+           partitions_per_block
   scene    garden30k_1080p: 5,834,784 gaussians at 1920x1080, capacity
            14,190,624, calibrated to 13,098,506 live ±3%; 3 warm-up + 10
            timed frames; the same checks of K1 and K2
@@ -1015,9 +1018,14 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
 
 
 # The scatter's phases as csrc/radix.cu's instrumented build stamps them
-# (vk3d_radix_phases): slot pairs of thread 0's clock.
-RADIX_PHASES = {"stage": (1, 2), "count and rank": (2, 3), "scans": (3, 4),
-                "inverse map": (4, 5), "look-back": (5, 6), "stores": (6, 7)}
+# (vk3d_radix_phases): slot pairs of thread 0's clock, in the order of the
+# block's loop (the global ns at slots 0 and 9); then the slots of bin 0's
+# look-back words, of the block's index times 2 plus 1 if the partition was
+# staged ahead, and of the cycles its block waited for its stage.
+RADIX_PHASES = {"rank": (1, 2), "issue next": (2, 3), "scans": (3, 4), "inverse map": (4, 5),
+                "next's wait and count": (5, 6), "look-back": (6, 7), "stores": (7, 8)}
+RADIX_PHASE_SLOTS = 13
+RADIX_PHASE_STEPS, RADIX_PHASE_BLOCK, RADIX_PHASE_WAIT = 10, 11, 12
 
 
 def radix_phases(call, what: str) -> list[dict]:
@@ -1026,7 +1034,10 @@ def radix_phases(call, what: str) -> list[dict]:
     by hand; main() does not call it), whose scatter stamps each
     partition's phases: per pass the mean µs of each phase a partition (the
     block's clock over its cycles per ns), the pass's span, the blocks
-    resident on average, and bin 0's look-back length.  Its result must
+    busy on average, bin 0's look-back length, the share of partitions
+    staged ahead (their copy issued before their block's previous
+    partition ended), the µs a partition's block waited for its stage
+    (`stage_wait_us`) and the partitions a block took.  Its result must
     equal the port's kernel's."""
     (tile, depth, index, count, num_tiles), kw = call
     with_perm = kw.get("with_perm", False)
@@ -1047,23 +1058,27 @@ def radix_phases(call, what: str) -> list[dict]:
     want = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
     if not all(torch.equal(a, b) for a, b in zip(out, want)):
         raise RuntimeError(f"{what}: the phases build of the radix sort differs from the kernel")
-    stamps = np.zeros((radix_kernel.MAX_PASSES, 4096, 10), np.uint64)
+    stamps = np.zeros((radix_kernel.MAX_PASSES, 4096, RADIX_PHASE_SLOTS), np.uint64)
     _build.check_launch(lib.vk3d_radix_phases(stamps.ctypes.data), "vk3d_radix_phases")
     n = e if count is None else min(max(int(count), 0), e)
     parts = min(-(-n // radix_kernel.TILE), 4096)
     rows = []
     for q in range(len(radix_kernel.schedule(num_tiles))):
         b = stamps[q, :parts].astype(np.int64)
-        ns = b[:, 8] - b[:, 0]
-        per_ns = (b[:, 7] - b[:, 1]).sum() / ns.sum()
-        span_us = (b[:, 8].max() - b[:, 0].min()) / 1e3
+        ns = b[:, 9] - b[:, 0]
+        per_ns = (b[:, 8] - b[:, 1]).sum() / ns.sum()
+        span_us = (b[:, 9].max() - b[:, 0].min()) / 1e3
+        block = b[:, RADIX_PHASE_BLOCK]
         rows.append({
             "pass": q, "span_us": round(float(span_us), 2),
-            "resident": round(float(ns.sum() / 1e3 / span_us), 1),
-            "block_us": round(float(ns.mean() / 1e3), 2),
+            "busy_blocks": round(float(ns.sum() / 1e3 / span_us), 1),
+            "partition_us": round(float(ns.mean() / 1e3), 2),
             **{k: round(float((b[:, hi] - b[:, lo]).mean() / per_ns / 1e3), 2)
                for k, (lo, hi) in RADIX_PHASES.items()},
-            "look_back_words": round(float(b[1:, 9].mean()), 1),
+            "look_back_words": round(float(b[1:, RADIX_PHASE_STEPS].mean()), 1),
+            "staged_ahead_share": round(float((block & 1).mean()), 4),
+            "stage_wait_us": round(float(b[:, RADIX_PHASE_WAIT].mean() / per_ns / 1e3), 2),
+            "partitions_per_block": round(parts / len(np.unique(block >> 1)), 2),
         })
     log(f"radix phases {what} ({n} sorted, {parts} partitions; instrumented build, µs a "
         f"partition): {rows}")

@@ -179,7 +179,7 @@ def test_schedule():
     assert rk.key_bits(RenderConfig(width=1024, height=1024).num_tiles) == 45
     # The header, 6 passes x 2 partitions of 256 status words, two [3, e]
     # record buffers with columns padded to 4 words.
-    assert rk.TILE == 6144 and rk.HEADER_WORDS == 16 + 8 * rk.BINS
+    assert rk.TILE == 8192 and rk.HEADER_WORDS == 16 + 8 * rk.BINS
     assert rk.scratch_words(rk.TILE + 1, 8160) == (rk.HEADER_WORDS + 6 * 2 * rk.BINS
                                                    + 6 * (rk.TILE + 4))
     assert rk.scratch_words(8, 3600) == rk.HEADER_WORDS + 6 * rk.BINS + 6 * 8

@@ -149,7 +149,7 @@ def test_slot_guard_and_status_capacity():
         assert int(word) >> rk.STATUS_COUNT_BITS == flag >> rk.STATUS_COUNT_BITS
         assert int(word) & (rk.MAX_SLOTS - 1) == rk.MAX_SLOTS - 1
     cfg = rk.python_config()
-    assert cfg["threads"] * cfg["items"] == rk.TILE == 6144
+    assert cfg["threads"] * cfg["items"] == rk.TILE == 8192
     assert rk.key_bits((1 << 31) - 1) <= cfg["max_passes"] * cfg["digit_bits"]
     assert cfg["header_words"] % 4 == 0  # the status words start 16 B aligned
 

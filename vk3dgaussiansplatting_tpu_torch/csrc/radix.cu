@@ -39,42 +39,66 @@
 //      whatever the order).  It also zeroes every pass's look-back status
 //      words (the scratch comes from a caching allocator and holds the last
 //      sort's flags).
-//  (b) scatter, a digit.  A block takes its partition (6144 slots) from the
-//      pass's atomic ticket, never from blockIdx: a partition's
-//      predecessors have then all started, so the look-back never waits on
-//      a block that is not resident.  Partitions at or past the live prefix
-//      take their ticket and exit; no live partition looks back at them.
-//      The block
-//      1. stages its three record columns in shared memory (cp.async, 16 B
-//         at a time, all in flight at once; the first pass converts the
-//         int64 columns through registers);
-//      2. finds each element's peers in its round (warp w holds slots
-//         [512 w, 512 w + 512), 32 a round; __match_any_sync), adds the
-//         partition's count of each digit in shared memory and publishes
-//         it, bin t by thread t, flagged AGGREGATE (INCLUSIVE for
-//         partition 0);
-//      3. ranks each element among the equal digits of its warp's earlier
-//         slots (per-warp bin counters carried from round to round), then
-//         the warps' counts in warp order, and scans the partition's counts
-//         over the bins: each element's place in the partition's sorted
-//         order, and the inverse map, sorted place -> slot;
+//  (b) scatter, a digit: a persistent grid, the SMs times the blocks an SM
+//      that the kernel's occupancy allows (one 512-thread block with two
+//      96 KiB record buffers; at most the pass's partitions).  A block takes
+//      partitions (8192 slots) from the pass's atomic ticket, never from
+//      blockIdx, in increasing order, until a ticket passes the live
+//      prefix, and works on them as a software pipeline: while it ranks,
+//      looks back and stores its current partition, the next one's records
+//      stage into its other buffer, and the next one is counted and
+//      published before the current one looks back.  A partition
+//      1. is staged: its three record columns copied to shared memory, all
+//         in flight at once (later passes: one bulk copy a column by thread
+//         0, the digit's column counted on one mbarrier of the buffer and
+//         the other two on a second, so that step 2 waits for a third of
+//         the bytes; the first pass: cp.async of the int64 columns' low
+//         words, the uint32 values, 4 B at a time);
+//      2. is counted: each element's peers in its round (warp w holds slots
+//         [512 w, 512 w + 512), 32 a round; __match_any_sync), the
+//         partition's count of each digit in shared memory, published bin
+//         t by thread t, flagged AGGREGATE (INCLUSIVE for partition 0);
+//      3. is ranked: each element among the equal digits of its warp's
+//         earlier slots (per-warp bin counters carried from round to
+//         round), then the warps' counts in warp order, and the partition's
+//         counts scanned over the bins: each element's place in the
+//         partition's sorted order, and the inverse map, sorted place ->
+//         slot;
 //      4. looks back, thread t over bin t: the earlier partitions' words,
-//         AGGREGATE counts summed until an INCLUSIVE one, then publishes
-//         its INCLUSIVE prefix.  A word is the flag in its top two bits and
-//         the count in the low 30, stored and loaded whole
-//         (st/ld.relaxed.gpu): a reader never sees a flag without its
-//         count, and nothing else is published, so no fence is needed;
+//         kLookBack in flight at once, AGGREGATE counts summed from the
+//         nearest until an INCLUSIVE one, then publishes its INCLUSIVE
+//         prefix.  A word is the flag in its top two bits and the count in
+//         the low 30, stored and loaded whole (st/ld.relaxed.gpu): a reader
+//         never sees a flag without its count, and nothing else is
+//         published, so no fence is needed;
 //      5. writes the records out in sorted order: sorted place i goes to its
 //         bin's base (the exclusive scan of the pass's global bins) + the
 //         earlier partitions' count of the bin + (i - the bin's place in the
 //         partition), so each bin's run of a partition lands contiguously.
+//      A block's loop over its current partition c: take the next ticket
+//      (its round trip under c's ranking); rank c; stage the next
+//      partition; scan c and build its inverse map; wait for the next
+//      partition's stage, count it and publish its AGGREGATE; look back for
+//      c; store c.  Its first partition is staged and counted before the
+//      loop.  Progress under any schedule: a block publishes a partition's
+//      AGGREGATE before it looks back for it, and takes its tickets and
+//      finishes its partitions in ticket order.  Let m be the lowest
+//      unfinished partition.  Were m the partition a block holds next,
+//      that block's current partition would be lower than m and
+//      unfinished, which cannot be; so m is its block's current partition,
+//      every earlier partition is INCLUSIVE, and m's look-back ends.  A
+//      ticket is only ever held by a running block, so no look-back waits
+//      on a block that is not resident.  Counting the next partition before
+//      the look-back keeps a ticket's AGGREGATE from lagging the block's
+//      current partition: a later partition's look-back seldom waits on it.
 // Records ping-pong between two scratch buffers as three uint32 columns
 // (depth, tile', payload: the id, or the slot when the permutation is
 // asked for), each padded to a multiple of 4 words.  The first scatter
-// reads the int64 columns; the last writes the int64 tile, depth and index
-// (the index gathered by slot when the permutation is asked for) and the
-// int64 permutation.  The tickets decide only which block takes which
-// partition, never an order: the result is deterministic and stable.
+// reads the int64 columns (maps the SENTINEL tile to num_tiles and makes
+// the slot payload as it stores); the last writes the int64 tile, depth
+// and index (the index gathered by slot when the permutation is asked for)
+// and the int64 permutation.  The tickets decide only which block takes
+// which partition, never an order: the result is deterministic and stable.
 //
 // What bounds it on the H100: bytes.  The function reads 24 B a live slot
 // and writes 24 B a slot: 0.66 GB at garden (13.1M live of 14.19M), 0.20
@@ -85,14 +109,18 @@
 // then written and read).  What the design does about it: it sorts only the
 // used key bits and the live prefix, carries 12-byte records instead of a
 // 64-bit key and a permutation, reads the key columns once for all the
-// digits' histograms, launches one kernel a digit, and holds two 89 KB
-// blocks an SM (24 warps), so one block's ranking and look-back overlap the
-// other's copies.
+// digits' histograms, launches one kernel a digit, and keeps each block's
+// copies off its critical path: a partition's records land while the block
+// works on the one before, so the SM has loads in flight through the
+// ranking, the scans and the look-back, and a persistent grid has no ragged
+// last wave.
 //
 // Built with -DVK3D_RADIX_PHASES=1 (chip_smoke.radix_phases), the scatter
-// also stamps each partition's phases (thread 0's clock after steps 1-5
-// above) and the length of bin 0's look-back, read with vk3d_radix_phases;
-// the library the port loads is built without it.
+// also stamps each partition's phases (thread 0's clock after each step of
+// the loop above), the length of bin 0's look-back, its block, whether it
+// was staged ahead (its copy issued before the block's previous partition
+// ended) and how long its block waited for its stage, read with
+// vk3d_radix_phases; the library the port loads is built without it.
 
 #include <atomic>
 #include <cstdint>
@@ -100,12 +128,14 @@
 
 namespace {
 
-constexpr int kThreads = 384;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 16;                 // elements a thread
-constexpr int kTile = kThreads * kItems;   // 6144 slots a partition
+constexpr int kTile = kThreads * kItems;   // 8192 slots a partition
 constexpr int kWarpSlots = 32 * kItems;    // 512 slots a warp
-constexpr int kFirstBatch = 4;             // rounds of int64 loads in flight (first pass)
+constexpr int kStage = 3 * kTile;          // words of a partition's record buffer
+constexpr int kScatterBlocksPerSm = 1;
+constexpr int kLookBack = 8;               // look-back words a bin reads at once
 constexpr int kDigitBits = 8;
 constexpr int kBins = 1 << kDigitBits;
 constexpr uint32_t kDigitMask = (2u << kDigitBits) - 1u;  // a digit, or kBins for no slot
@@ -125,25 +155,29 @@ constexpr uint32_t kInclusive = 2u << kStatusCountBits;
 constexpr uint32_t kCountMask = kAggregate - 1u;
 constexpr int64_t kSentinel = 0xFFFFFFFFll;  // core/config.py SENTINEL
 constexpr unsigned kFull = 0xFFFFFFFFu;
-// The scatter's dynamic shared memory: the partition's three record
-// columns, the per-warp bin counters (later the inverse map), the
-// partition's bin counts, the local and global bin offsets, the scan sums.
-constexpr int kScatterSmem = (3 * kTile + kWarps * kBins + 3 * kBins + 32) * 4;
+constexpr uint32_t kSentinelWord = 0xFFFFFFFFu;  // a SENTINEL's low word
+// The scatter's dynamic shared memory: two partitions' three record
+// columns (the current one and the next one's stage), the per-warp bin
+// counters (later the inverse map), the partition's bin counts, the local
+// and global bin offsets, the scan sums.
+constexpr int kScatterSmem = (2 * kStage + kWarps * kBins + 3 * kBins + 32) * 4;
 
 static_assert(kThreads >= kBins && kThreads % 32 == 0, "a thread a bin in the per-bin steps");
 static_assert(kTile <= 0x10000 && kTile % 4 == 0, "places pack two to a register; whole vectors");
-static_assert(kItems % kFirstBatch == 0, "whole batches");
 static_assert(kDigitBits + 1 + 5 + 6 <= 32, "a digit, the lanes below and its peers in one word");
 static_assert(kWarps * kBins * 4 >= kTile * 2, "the inverse map fits over the warp counters");
 static_assert(kHeaderWords % 4 == 0, "the status words start 16 B aligned");
-static_assert(2 * (kScatterSmem + 1024) <= 228 * 1024, "two scatter blocks an SM");
+static_assert(kScatterSmem <= 227 * 1024 &&
+                  kScatterBlocksPerSm * (kScatterSmem + 1024 + 32) <= 228 * 1024,
+              "the scatter blocks an SM fit its shared memory");
 
 #if VK3D_RADIX_PHASES
 constexpr int kPhaseParts = 4096;  // partitions stamped a pass
-constexpr int kPhaseSlots = 10;
+constexpr int kPhaseSlots = 13;
 __device__ unsigned long long g_phases[kMaxPasses][kPhaseParts][kPhaseSlots];
-#define RADIX_PHASE(k, v) \
-  if (tid == 0 && part < kPhaseParts) g_phases[p.pass][part][k] = (v)
+#define RADIX_PHASE_AT(q, k, v) \
+  if (tid == 0 && (q) < kPhaseParts) g_phases[p.pass][q][k] = (v)
+#define RADIX_PHASE(k, v) RADIX_PHASE_AT(part, k, v)
 #define RADIX_PHASE_SYNC() __syncthreads()
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
@@ -151,6 +185,7 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 #else
+#define RADIX_PHASE_AT(q, k, v) ((void)0)
 #define RADIX_PHASE(k, v) ((void)0)
 #define RADIX_PHASE_SYNC() ((void)0)
 #endif
@@ -174,13 +209,60 @@ __device__ __forceinline__ uint32_t load_status(const uint32_t* p) {
   return v;
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t* smem, const uint32_t* gmem) {
-  const auto s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+// Hopper's bulk copy: `bytes` (a multiple of 16, both ends 16 B aligned)
+// from global to shared memory, counted against the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t* smem, const uint32_t* gmem, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          shared_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(shared_addr(bar)) : "memory");
+}
+
+// The one arrival of the barrier's phase, which then completes when `bytes`
+// have landed.
+__device__ __forceinline__ void mbarrier_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(shared_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(shared_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
+// Closes the thread's cp.async group (an empty one without copies).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits for every cp.async group of the thread.
 __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t warp_inclusive(uint32_t x) {
@@ -256,9 +338,10 @@ __global__ void __launch_bounds__(kHistThreads) radix_histogram_kernel(
       const uint32_t i = base + k * kHistThreads + threadIdx.x;
       d[k] = t[k] = 0;
       if (i < n) {
-        const int64_t t64 = __ldcs(reinterpret_cast<const long long*>(tile) + i);
+        // The low words, as the first scatter stages them.
+        const auto t32 = static_cast<uint32_t>(__ldcs(reinterpret_cast<const long long*>(tile) + i));
         d[k] = static_cast<uint32_t>(__ldcs(reinterpret_cast<const long long*>(depth) + i));
-        t[k] = t64 == kSentinel ? num_tiles : static_cast<uint32_t>(t64);
+        t[k] = t32 == kSentinelWord ? num_tiles : t32;
       }
     }
 #pragma unroll
@@ -303,15 +386,97 @@ struct Pass {
   int pass;
 };
 
-// (b) One digit's chained-scan scatter of one partition (steps 1-5 at the
-// top of the file).
+// Starts the staging of the records of the partition at `start`, [0, cnt)
+// of each column, into `buf` ([3][kTile]).  The first pass copies the low
+// words of the int64 columns (their uint32 values) 4 B at a time with
+// cp.async, every thread its share, the payload only when it is the id,
+// closed as one cp.async group.  Later passes have thread 0 copy each
+// padded uint32 column with one bulk copy (a segment starts 16 B aligned,
+// and its rounded-up end stays inside the column's padding): the digit's
+// column counted on `bars[0]`, the other two on `bars[1]`, so that the
+// count waits for a third of the bytes.  `wait_digits` and `wait_records`
+// wait for them.
+template <bool kFirst>
+__device__ __forceinline__ void stage_partition(const Pass& p, uint32_t start, uint32_t cnt,
+                                                uint32_t* buf, uint64_t* bars) {
+  if (kFirst) {
+    const auto* d32 = reinterpret_cast<const uint32_t*>(p.depth64 + start);
+    const auto* t32 = reinterpret_cast<const uint32_t*>(p.tile64 + start);
+    const auto* i32 = reinterpret_cast<const uint32_t*>(p.index64 + start);
+    const bool payload = p.out_perm == nullptr;
+    for (uint32_t i = threadIdx.x; i < cnt; i += kThreads) {
+      cp_async4(buf + i, d32 + 2 * i);
+      cp_async4(buf + kTile + i, t32 + 2 * i);
+      if (payload) cp_async4(buf + 2 * kTile + i, i32 + 2 * i);
+    }
+    cp_async_commit();
+  } else if (threadIdx.x == 0) {
+    const uint32_t bytes = 16 * ((cnt + 3) / 4);
+    // The buffer's last reads (the previous partition's stores, before the
+    // block's barrier) are ordered before the copy's writes.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbarrier_expect(&bars[0], bytes);
+    mbarrier_expect(&bars[1], 2 * bytes);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int col = (p.column + c) % 3;  // the digit's column first
+      bulk_copy(buf + col * kTile, p.in + col * static_cast<size_t>(p.stride) + start, bytes,
+                &bars[c == 0 ? 0 : 1]);
+    }
+  }
+}
+
+// Waits for the digit's column of a stage into buffer b (its barrier
+// `bars[2 b]` at the parity in bit 2 b of `parities`, which flips); a
+// barrier of the block must follow.  The first pass waits for all three.
+template <bool kFirst>
+__device__ __forceinline__ void wait_digits(uint64_t* bars, uint32_t b, uint32_t& parities) {
+  if (kFirst) {
+    cp_async_wait_all();
+  } else {
+    mbarrier_wait(bars + 2 * b, (parities >> (2 * b)) & 1u);
+    parities ^= 1u << (2 * b);
+  }
+}
+
+// Waits for the other two columns of a stage into buffer b (bars[2 b + 1],
+// bit 2 b + 1); each thread sees them once its own wait returns.
+template <bool kFirst>
+__device__ __forceinline__ void wait_records(uint64_t* bars, uint32_t b, uint32_t& parities) {
+  if (!kFirst) {
+    mbarrier_wait(bars + 2 * b + 1, (parities >> (2 * b + 1)) & 1u);
+    parities ^= 1u << (2 * b + 1);
+  }
+}
+
+// Counts the partition's digits (step 2): each element's digit, with the
+// lanes below it and its peers in its round (__match_any_sync) beside it
+// in dr (9 + 5 + 6 bits; an invalid slot carries the digit kBins), and the
+// round's lowest peer adds their number to the partition's count of the
+// digit in bcount.
+__device__ __forceinline__ void count_partition(const uint32_t* dcol, uint32_t cnt, int shift,
+                                                uint32_t wbase, uint32_t below_mask,
+                                                uint32_t* bcount, uint32_t (&dr)[kItems]) {
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const uint32_t i = wbase + 32 * j;
+    const uint32_t d = i < cnt ? (dcol[i] >> shift) & (kBins - 1) : kBins;
+    const uint32_t peers = __match_any_sync(kFull, d);
+    const uint32_t below = __popc(peers & below_mask);
+    if (d < kBins && below == 0) atomicAdd(&bcount[d], __popc(peers));
+    dr[j] = d | (below << (kDigitBits + 1)) | (__popc(peers) << (kDigitBits + 6));
+  }
+}
+
+// (b) One digit's chained-scan scatter: a persistent block's pipeline over
+// its tickets (steps 1-5 and the loop at the top of the file).
 template <bool kFirst, bool kLast>
-__global__ void __launch_bounds__(kThreads, 2) radix_scatter_kernel(const Pass p) {
-  extern __shared__ uint32_t smem[];
-  __shared__ uint32_t s_part;
-  uint32_t* s_col = smem;                         // [3][kTile] depth, tile', payload
-  uint32_t* whist = smem + 3 * kTile;             // [kWarps][kBins]
-  uint32_t* bcount = whist + kWarps * kBins;      // [kBins] the partition's counts
+__global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_kernel(const Pass p) {
+  extern __shared__ __align__(16) uint32_t smem[];  // [2][kStage] the record buffers, then:
+  __shared__ uint32_t s_ticket;
+  __shared__ uint64_t s_bar[4];  // the record buffers' bulk copies: [buffer][digits, the rest]
+  uint32_t* whist = smem + 2 * kStage;            // [kWarps][kBins]
+  uint32_t* bcount = whist + kWarps * kBins;      // [kBins] a partition's counts
   uint32_t* local_off = bcount + kBins;           // [kBins]
   uint32_t* gdelta = local_off + kBins;           // [kBins] global - local place
   uint32_t* sums = gdelta + kBins;                // [32]
@@ -319,230 +484,283 @@ __global__ void __launch_bounds__(kThreads, 2) radix_scatter_kernel(const Pass p
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  if (tid == 0) s_part = atomicAdd(p.ticket, 1u);
-  for (int i = tid; i < (kWarps + 1) * kBins; i += kThreads) whist[i] = 0;
-  __syncthreads();
-  const uint32_t part = s_part;
-  const uint32_t n = sorted_len(p.count, p.flag, p.e);
-  const uint32_t start = part * kTile;
-  if (start >= n) return;  // uniform over the block
-  const uint32_t cnt = min(n - start, static_cast<uint32_t>(kTile));
-  RADIX_PHASE(0, global_ns());
-  RADIX_PHASE(1, clock64());
-
-  // 1. Lane l of warp w holds the partition's slots 512 w + 32 j + l,
-  // j < 16; an invalid slot carries the digit kBins.
+  // Lane l of warp w holds the partition's slots 512 w + 32 j + l, j < 16.
   const uint32_t wbase = warp * kWarpSlots + lane;
-  uint32_t dr[kItems];
-  if (kFirst) {
-#pragma unroll
-    for (int jb = 0; jb < kItems; jb += kFirstBatch) {
-      long long tv[kFirstBatch], dv[kFirstBatch], iv[kFirstBatch];
-#pragma unroll
-      for (int b = 0; b < kFirstBatch; ++b) {
-        const uint32_t i = wbase + 32 * (jb + b);
-        if (i < cnt) {
-          tv[b] = __ldcs(reinterpret_cast<const long long*>(p.tile64) + start + i);
-          dv[b] = __ldcs(reinterpret_cast<const long long*>(p.depth64) + start + i);
-          iv[b] = p.out_perm != nullptr
-                      ? start + i
-                      : __ldcs(reinterpret_cast<const long long*>(p.index64) + start + i);
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < kFirstBatch; ++b) {
-        const uint32_t i = wbase + 32 * (jb + b);
-        dr[jb + b] = kBins;
-        if (i < cnt) {
-          const auto dk = static_cast<uint32_t>(dv[b]);
-          s_col[i] = dk;
-          s_col[kTile + i] = tv[b] == kSentinel ? p.num_tiles : static_cast<uint32_t>(tv[b]);
-          s_col[2 * kTile + i] = static_cast<uint32_t>(iv[b]);
-          dr[jb + b] = (dk >> p.shift) & (kBins - 1);  // the first digit is depth's
-        }
-      }
-    }
-  } else {
-    // The padded columns keep each segment 16 B aligned and its last
-    // vector inside the column.
-    const uint32_t vecs = (cnt + 3) / 4;
-    for (uint32_t v = tid; v < 3 * vecs; v += kThreads) {
-      const uint32_t c = v / vecs;
-      const uint32_t w = 4 * (v - c * vecs);
-      cp_async16(s_col + c * kTile + w, p.in + c * static_cast<size_t>(p.stride) + start + w);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    const uint32_t* dcol = s_col + p.column * kTile;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const uint32_t i = wbase + 32 * j;
-      dr[j] = i < cnt ? (dcol[i] >> p.shift) & (kBins - 1) : kBins;
-    }
-  }
-  RADIX_PHASE_SYNC();
-  RADIX_PHASE(2, clock64());
-
-  // 2. The peers of each element; the round's lowest peer adds their number
-  // to the partition's count of the digit.  The lanes below and the peers'
-  // number are kept beside the digit (9 + 5 + 6 bits).
   const uint32_t below_mask = (1u << lane) - 1u;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const uint32_t d = dr[j];
-    const uint32_t peers = __match_any_sync(kFull, d);
-    const uint32_t below = __popc(peers & below_mask);
-    if (d < kBins && below == 0) atomicAdd(&bcount[d], __popc(peers));
-    dr[j] = d | (below << (kDigitBits + 1)) | (__popc(peers) << (kDigitBits + 6));
-  }
-  __syncthreads();
   const bool bin_thread = tid < kBins;
+  uint32_t* wh = whist + warp * kBins;
+  auto* inv = reinterpret_cast<uint16_t*>(whist);
+  const uint32_t n = sorted_len(p.count, p.flag, p.e);
+
+  // The first partition: its ticket, its stage, its count (step 2) and its
+  // AGGREGATE word (INCLUSIVE for partition 0).
+  if (tid == 0) {
+    s_ticket = atomicAdd(p.ticket, 1u);
+    for (int i = 0; i < 4; ++i) mbarrier_init(&s_bar[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = tid; i < kBins; i += kThreads) bcount[i] = 0;
+  uint32_t parities = 0;
+  __syncthreads();
+  uint32_t part = s_ticket;
+  if (part * kTile >= n) return;  // uniform over the block
+  stage_partition<kFirst>(p, part * kTile, min(n - part * kTile, static_cast<uint32_t>(kTile)),
+                          smem, s_bar);
+  RADIX_PHASE(1, clock64());
+  wait_digits<kFirst>(s_bar, 0, parities);
+  __syncthreads();
+  RADIX_PHASE(12, clock64() - g_phases[p.pass][part][1]);
+  uint32_t dr[kItems];
+  count_partition(smem + p.column * kTile, min(n - part * kTile, static_cast<uint32_t>(kTile)),
+                  p.shift, wbase, below_mask, bcount, dr);
+  __syncthreads();
   uint32_t run = 0;
   if (bin_thread) {
     run = bcount[tid];
     store_status(p.status + static_cast<size_t>(part) * kBins + tid,
                  (part == 0 ? kInclusive : kAggregate) | run);
   }
-
-  // 3. The rank among the equal digits of the warp's earlier slots replaces
-  // the lanes below; then per bin the warps' counts become their offsets in
-  // warp order, and the bins' local offsets and global bases are scanned.
-  uint32_t* wh = whist + warp * kBins;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const uint32_t d = dr[j] & kDigitMask;
-    const uint32_t below = (dr[j] >> (kDigitBits + 1)) & 31u;
-    const bool valid = d < kBins;
-    const uint32_t base = valid ? wh[d] : 0u;
-    __syncwarp();
-    if (valid && below == 0) wh[d] = base + (dr[j] >> (kDigitBits + 6));
-    __syncwarp();
-    dr[j] = ((base + below) << (kDigitBits + 1)) | d;
-  }
-  __syncthreads();
-  RADIX_PHASE(3, clock64());
-  if (bin_thread) {
-    uint32_t offset = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const uint32_t c = whist[w * kBins + tid];
-      whist[w * kBins + tid] = offset;
-      offset += c;
-    }
-  }
-  const uint32_t lo = block_exclusive_scan(bin_thread ? run : 0u, sums);
-  const uint32_t gbase = block_exclusive_scan(bin_thread ? p.hist[tid] : 0u, sums);
-  if (bin_thread) local_off[tid] = lo;
-  __syncthreads();
-  RADIX_PHASE(4, clock64());
-  // Each element's place in the partition's sorted order, two to a
-  // register; then the inverse map as uint16 over the warp counters, which
-  // are read until the barrier.
-  uint32_t pos[kItems / 2];
-#pragma unroll
-  for (int j = 0; j < kItems; j += 2) {
-    uint32_t two = 0;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t d = dr[j + h] & kDigitMask;
-      if (d < kBins) two |= (local_off[d] + wh[d] + (dr[j + h] >> (kDigitBits + 1))) << (16 * h);
-    }
-    pos[j / 2] = two;
-  }
-  __syncthreads();
-  auto* inv = reinterpret_cast<uint16_t*>(whist);
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const uint32_t i = wbase + 32 * j;
-    if (i < cnt) inv[(pos[j / 2] >> (16 * (j % 2))) & 0xFFFFu] = static_cast<uint16_t>(i);
-  }
-  RADIX_PHASE(5, clock64());
-
-  // 4. The look-back, placed after the partition's own work so that its
-  // predecessors have had the longest time to publish.  Partition 0 is
-  // INCLUSIVE from the start, so the walk ends there at the latest.
-  if (bin_thread) {
-    uint32_t excl = 0;
-    if (part > 0) {
 #if VK3D_RADIX_PHASES
-      unsigned long long steps = 0;
+  unsigned long long ahead = 0;  // this partition was staged during the block's previous one
 #endif
-      for (uint32_t k = part - 1;; --k) {
-        const uint32_t* w = p.status + static_cast<size_t>(k) * kBins + tid;
-        uint32_t s;
-        do {
-          s = load_status(w);
-        } while (s < kAggregate);
-#if VK3D_RADIX_PHASES
-        ++steps;
-#endif
-        excl += s & kCountMask;
-        if (s >= kInclusive) break;
+  // Buffer b holds `part`'s records, counted in dr and run; the next
+  // partition stages into 1 - b.
+  for (uint32_t b = 0;; b ^= 1u) {
+    const uint32_t* s_col = smem + b * kStage;
+    const uint32_t start = part * kTile;
+    const uint32_t cnt = min(n - start, static_cast<uint32_t>(kTile));
+    RADIX_PHASE(0, global_ns());
+    RADIX_PHASE(1, clock64());
+    // The last partition's stores have read the buffer the next partition
+    // stages into, the inverse map and gdelta, and every thread has read
+    // bcount and s_ticket.  The next ticket's round trip runs under this
+    // partition's ranking.
+    __syncthreads();
+    uint32_t ticket = 0;
+    if (tid == 0) ticket = atomicAdd(p.ticket, 1u);
+    for (int i = tid; i < (kWarps + 1) * kBins; i += kThreads) whist[i] = 0;
+    __syncthreads();
+
+    // 3. This partition's rank among the equal digits of the warp's earlier
+    // slots replaces the lanes below; then (after the next partition's
+    // stage is issued) per bin the warps' counts become their offsets in
+    // warp order, and the bins' local offsets and global bases are scanned.
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const uint32_t d = dr[j] & kDigitMask;
+      const uint32_t below = (dr[j] >> (kDigitBits + 1)) & 31u;
+      const bool valid = d < kBins;
+      const uint32_t base = valid ? wh[d] : 0u;
+      __syncwarp();
+      if (valid && below == 0) wh[d] = base + (dr[j] >> (kDigitBits + 6));
+      __syncwarp();
+      dr[j] = ((base + below) << (kDigitBits + 1)) | d;
+    }
+    if (tid == 0) s_ticket = ticket;
+    __syncthreads();
+    RADIX_PHASE(2, clock64());
+    // 1. The next partition's stage, into the other buffer.  Every later
+    // ticket is past the live prefix once this one is.
+    const uint32_t next = s_ticket;
+    const bool more = next * kTile < n;  // uniform over the block
+    const uint32_t next_cnt = more ? min(n - next * kTile, static_cast<uint32_t>(kTile)) : 0u;
+    if (more) {
+      stage_partition<kFirst>(p, next * kTile, next_cnt, smem + (b ^ 1u) * kStage,
+                              s_bar + 2 * (b ^ 1u));
+    }
+    RADIX_PHASE(3, clock64());
+    if (bin_thread) {
+      uint32_t offset = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const uint32_t c = whist[w * kBins + tid];
+        whist[w * kBins + tid] = offset;
+        offset += c;
       }
-      store_status(p.status + static_cast<size_t>(part) * kBins + tid, kInclusive | (excl + run));
-      RADIX_PHASE(9, steps);
     }
-    gdelta[tid] = gbase + excl - lo;
-  }
-  RADIX_PHASE(6, clock64());
-  __syncthreads();
+    const uint32_t lo = block_exclusive_scan(bin_thread ? run : 0u, sums);
+    const uint32_t gbase = block_exclusive_scan(bin_thread ? p.hist[tid] : 0u, sums);
+    if (bin_thread) local_off[tid] = lo;
+    __syncthreads();
+    RADIX_PHASE(4, clock64());
+    // Each element's place in the partition's sorted order, two to a
+    // register; then the inverse map as uint16 over the warp counters,
+    // which are read until the barrier.
+    uint32_t pos[kItems / 2];
+#pragma unroll
+    for (int j = 0; j < kItems; j += 2) {
+      uint32_t two = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t d = dr[j + h] & kDigitMask;
+        if (d < kBins) two |= (local_off[d] + wh[d] + (dr[j + h] >> (kDigitBits + 1))) << (16 * h);
+      }
+      pos[j / 2] = two;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const uint32_t i = wbase + 32 * j;
+      if (i < cnt) inv[(pos[j / 2] >> (16 * (j % 2))) & 0xFFFFu] = static_cast<uint16_t>(i);
+    }
+    RADIX_PHASE(5, clock64());
 
-  // 5. Thread t writes sorted places t, t + kThreads, ... of all three
-  // columns, reading each record where step 1 staged it.
-#pragma unroll 4
-  for (int j = 0; j < kItems; ++j) {
-    const uint32_t i = j * kThreads + tid;
-    if (i < cnt) {
-      const uint32_t src = inv[i];
-      const uint32_t dk = s_col[src];
-      const uint32_t tk = s_col[kTile + src];
-      const uint32_t pk = s_col[2 * kTile + src];
-      const uint32_t g = gdelta[((p.column == 0 ? dk : tk) >> p.shift) & (kBins - 1)] + i;
-      if (kLast) {
-        auto* out_tile = reinterpret_cast<long long*>(p.out_tile);
-        auto* out_depth = reinterpret_cast<long long*>(p.out_depth);
-        auto* out_index = reinterpret_cast<long long*>(p.out_index);
-        __stcs(out_depth + g, static_cast<long long>(dk));
-        __stcs(out_tile + g, tk == p.num_tiles ? kSentinel : static_cast<long long>(tk));
-        if (p.out_perm != nullptr) {
-          __stcs(out_index + g, __ldg(reinterpret_cast<const long long*>(p.index64) + pk));
-          __stcs(reinterpret_cast<long long*>(p.out_perm) + g, static_cast<long long>(pk));
-        } else {
-          __stcs(out_index + g, static_cast<long long>(pk));
+    // 2. The next partition's count and AGGREGATE word, ahead of this
+    // partition's look-back, so that no later partition's look-back waits
+    // on it while this block looks back and stores.
+    uint32_t next_run = 0;
+    if (more) {
+      wait_digits<kFirst>(s_bar, b ^ 1u, parities);
+      __syncthreads();
+      RADIX_PHASE_AT(next, 12, clock64() - g_phases[p.pass][part][5]);
+      count_partition(smem + (b ^ 1u) * kStage + p.column * kTile, next_cnt, p.shift, wbase,
+                      below_mask, bcount, dr);
+      __syncthreads();
+      if (bin_thread) {
+        next_run = bcount[tid];
+        store_status(p.status + static_cast<size_t>(next) * kBins + tid, kAggregate | next_run);
+      }
+    }
+    RADIX_PHASE(6, clock64());
+
+    // 4. The look-back, placed after the partition's own work so that its
+    // predecessors have had the longest time to publish.  The words below
+    // k are read kLookBack at a time, all in flight at once, and summed
+    // from the nearest down to the first INCLUSIVE one; an unpublished
+    // word ends the window, and the walk waits on it alone before it reads
+    // the next window from there.  Partition 0 is INCLUSIVE from the start,
+    // so the walk ends there at the latest (and never reads below it).
+    if (bin_thread) {
+      uint32_t excl = 0;
+      if (part > 0) {
+#if VK3D_RADIX_PHASES
+        unsigned long long steps = 0;
+#endif
+        for (uint32_t k = part;;) {
+          uint32_t w[kLookBack];
+#pragma unroll
+          for (int i = 0; i < kLookBack; ++i) {
+            w[i] = i < k ? load_status(p.status + static_cast<size_t>(k - 1 - i) * kBins + tid)
+                         : kInclusive;
+          }
+          uint32_t used = kLookBack;
+          bool done = false;
+#pragma unroll
+          for (int i = 0; i < kLookBack; ++i) {
+            if (!done && used == kLookBack) {
+              if (w[i] < kAggregate) {
+                used = i;
+              } else {
+                excl += w[i] & kCountMask;
+                done = w[i] >= kInclusive;
+#if VK3D_RADIX_PHASES
+                ++steps;
+#endif
+              }
+            }
+          }
+          if (done) break;
+          k -= used;
+          if (used == 0) {
+            const uint32_t* wait = p.status + static_cast<size_t>(k - 1) * kBins + tid;
+            while (load_status(wait) < kAggregate) {
+            }
+          }
         }
-      } else {
-        __stcs(p.out + g, dk);
-        __stcs(p.out + p.stride + g, tk);
-        __stcs(p.out + 2 * static_cast<size_t>(p.stride) + g, pk);
+        store_status(p.status + static_cast<size_t>(part) * kBins + tid, kInclusive | (excl + run));
+        RADIX_PHASE(10, steps);
+      }
+      gdelta[tid] = gbase + excl - lo;
+    }
+    RADIX_PHASE(7, clock64());
+    __syncthreads();
+
+    // 5. Thread t writes sorted places t, t + kThreads, ... of all three
+    // columns, reading each record where step 1 staged it.
+    wait_records<kFirst>(s_bar, b, parities);
+#pragma unroll 4
+    for (int j = 0; j < kItems; ++j) {
+      const uint32_t i = j * kThreads + tid;
+      if (i < cnt) {
+        const uint32_t src = inv[i];
+        const uint32_t dk = s_col[src];
+        uint32_t tk = s_col[kTile + src];
+        if (kFirst && tk == kSentinelWord) tk = p.num_tiles;
+        const uint32_t pk =
+            kFirst && p.out_perm != nullptr ? start + src : s_col[2 * kTile + src];
+        const uint32_t g = gdelta[((p.column == 0 ? dk : tk) >> p.shift) & (kBins - 1)] + i;
+        if (kLast) {
+          auto* out_tile = reinterpret_cast<long long*>(p.out_tile);
+          auto* out_depth = reinterpret_cast<long long*>(p.out_depth);
+          auto* out_index = reinterpret_cast<long long*>(p.out_index);
+          __stcs(out_depth + g, static_cast<long long>(dk));
+          __stcs(out_tile + g, tk == p.num_tiles ? kSentinel : static_cast<long long>(tk));
+          if (p.out_perm != nullptr) {
+            __stcs(out_index + g, __ldg(reinterpret_cast<const long long*>(p.index64) + pk));
+            __stcs(reinterpret_cast<long long*>(p.out_perm) + g, static_cast<long long>(pk));
+          } else {
+            __stcs(out_index + g, static_cast<long long>(pk));
+          }
+        } else {
+          __stcs(p.out + g, dk);
+          __stcs(p.out + p.stride + g, tk);
+          __stcs(p.out + 2 * static_cast<size_t>(p.stride) + g, pk);
+        }
       }
     }
+    RADIX_PHASE_SYNC();
+    RADIX_PHASE(8, clock64());
+    RADIX_PHASE(9, global_ns());
+    RADIX_PHASE(11, (static_cast<unsigned long long>(blockIdx.x) << 1) | ahead);
+#if VK3D_RADIX_PHASES
+    ahead = 1;
+#endif
+    if (!more) break;
+    part = next;
+    run = next_run;
   }
-  RADIX_PHASE_SYNC();
-  RADIX_PHASE(7, clock64());
-  RADIX_PHASE(8, global_ns());
+}
+
+// The scatter's grid for `device`: its SMs times the blocks an SM that the
+// kernel's occupancy allows.  Above 48 KB of shared memory needs the
+// kernel's opt-in, a host call made once a device per process with the
+// occupancy query (cached for devices below 64, asked every time from 64
+// on); a refused call is returned and asked again next time.  The carveout
+// asks for the most shared memory, so the block's 211 KiB fit an SM.
+template <bool kFirst, bool kLast>
+cudaError_t scatter_grid(int device, uint32_t* blocks) {
+  static std::atomic<uint32_t> cached[64];
+  const bool cacheable = device >= 0 && device < 64;
+  if (cacheable && (*blocks = cached[device].load(std::memory_order_acquire)) != 0) {
+    return cudaSuccess;
+  }
+  const auto kernel = radix_scatter_kernel<kFirst, kLast>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScatterSmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  int per_sm = 0;
+  int sms = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kScatterSmem);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
+  *blocks = static_cast<uint32_t>(per_sm) * static_cast<uint32_t>(sms);
+  if (cacheable) cached[device].store(*blocks, std::memory_order_release);
+  return cudaSuccess;
 }
 
 template <bool kFirst, bool kLast>
-cudaError_t launch_scatter(const Pass& p, unsigned int blocks, int device, cudaStream_t s) {
-  // Above 48 KB of shared memory needs the kernel's opt-in, a host call
-  // made once a device per process (a bit of `opted` each, devices from 64
-  // on every time); a refused opt-in is returned and asked again next call.
-  // The carveout asks for the most shared memory, so two blocks fit an SM.
-  static std::atomic<uint64_t> opted{0};
-  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
-  if (bit == 0 || !(opted.load(std::memory_order_acquire) & bit)) {
-    cudaError_t err = cudaFuncSetAttribute(radix_scatter_kernel<kFirst, kLast>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           kScatterSmem);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(radix_scatter_kernel<kFirst, kLast>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    }
-    if (err != cudaSuccess) return err;
-    opted.fetch_or(bit, std::memory_order_release);
-  }
-  radix_scatter_kernel<kFirst, kLast><<<blocks, kThreads, kScatterSmem, s>>>(p);
+cudaError_t launch_scatter(const Pass& p, uint32_t nparts, int device, cudaStream_t s) {
+  uint32_t blocks = 0;
+  const cudaError_t err = scatter_grid<kFirst, kLast>(device, &blocks);
+  if (err != cudaSuccess) return err;
+  radix_scatter_kernel<kFirst, kLast>
+      <<<blocks < nparts ? blocks : nparts, kThreads, kScatterSmem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -568,15 +786,26 @@ extern "C" int vk3d_radix_config(int32_t* out, int32_t n) {
 }
 
 #if VK3D_RADIX_PHASES
-// The last sort's phase stamps, [kMaxPasses][4096][10] uint64, into `out`
-// (host memory): per pass and partition the global ns at the start,
-// thread 0's clock at the start, after steps 1 and 2-3, after the scans,
-// after the inverse map and after its look-back, at the end, the global ns
-// at the end, and bin 0's look-back length in words.
+// The last sort's phase stamps, [kMaxPasses][4096][12] uint64, into `out`
+// (host memory): per pass and partition the global ns at the start, thread
+// 0's clock at the start, after the next partition's ticket and stage
+// issue, after the wait for this partition's stage, after steps 2-3, the
+// scans, the inverse map and its look-back, at the end, the global ns at
+// the end, bin 0's look-back length in words, and the block's index times
+// 2 plus 1 if the partition was staged ahead.
 extern "C" int vk3d_radix_phases(void* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_phases, sizeof(g_phases)));
 }
 #endif
+
+// The scatter's persistent grid on `device` (its SMs times the blocks an
+// SM that the kernel's occupancy allows), or minus the CUDA error.
+extern "C" int64_t vk3d_radix_resident_blocks(int32_t device) {
+  cudaError_t err = cudaSetDevice(device);
+  uint32_t blocks = 0;
+  if (err == cudaSuccess) err = scatter_grid<false, false>(device, &blocks);
+  return err == cudaSuccess ? static_cast<int64_t>(blocks) : -static_cast<int64_t>(err);
+}
 
 // Sorts the [e] int64 columns tile, depth, index (uint32 values; tiles below
 // num_tiles or SENTINEL) by (tile, depth), stably, into out_tile, out_depth,

@@ -86,6 +86,8 @@ SIGNATURES = {
     ),
     # out (host int32), n: csrc/radix.cu's constants
     "vk3d_radix_config": ([_P, _I32], ctypes.c_int),
+    # device: the radix scatter's persistent grid, or minus the CUDA error
+    "vk3d_radix_resident_blocks": ([_I32], _I64),
     # n, tiles: the int64 words of K7's scratch, or -1 (the launch's refusal)
     "vk3d_keygen_scratch_words": ([_I64, _I64], _I64),
     # position, scale, rot, opacity, sh, n, params (host), thr, total,

@@ -9,9 +9,11 @@ the one-sweep form (Adinets & Merrill, arXiv:2206.01784).  One call of
 the C entry point runs the whole sort on the current stream: with a count,
 a setup kernel over the slots past it; one histogram kernel that counts
 every digit's bins in one read of the key columns; then one chained-scan
-scatter kernel a 8-bit digit (`schedule`), whose blocks take their
-partitions from an atomic ticket and find the earlier partitions' counts
-by decoupled look-back.
+scatter kernel a 8-bit digit (`schedule`): a persistent grid
+(`resident_blocks`) whose blocks take their partitions from an atomic
+ticket, in order, stage each next partition's records while they rank and
+store the current one, and find the earlier partitions' counts by
+decoupled look-back.
 
 The columns are int64 tensors holding uint32 values (ops/keygen.py), tiles
 below `num_tiles` or SENTINEL; the order is (tile, depth), stable, with
@@ -37,10 +39,10 @@ from . import _build
 LAUNCHES = 0
 PASSES = 0
 # Copies of csrc/radix.cu's constants (`check_kernel_config` holds them to
-# the library's): a scatter block is 12 warps, each 16 rounds (ITEMS) of 32
+# the library's): a scatter block is 16 warps, each 16 rounds (ITEMS) of 32
 # slots, TILE slots a partition; 8-bit digits; at most 8 passes; the
 # scratch's header words; the status words' count bits.
-WARPS = 12
+WARPS = 16
 ITEMS = 16
 TILE = WARPS * ITEMS * 32
 DIGIT_BITS = 8
@@ -77,6 +79,17 @@ def check_kernel_config() -> dict:
     if got != want:
         raise RuntimeError(f"csrc/radix.cu's constants {got} differ from radix_kernel's {want}")
     return got
+
+
+def resident_blocks(device: int | None = None) -> int:
+    """The scatter's persistent grid on a CUDA device (the current one by
+    default): its SMs times the blocks an SM that the kernel's occupancy
+    allows.  Each pass launches at most its partitions of them."""
+    index = torch.cuda.current_device() if device is None else device
+    blocks = _build.load_library().vk3d_radix_resident_blocks(index)
+    if blocks < 0:
+        _build.check_launch(-blocks, "radix scatter occupancy")
+    return blocks
 
 
 def key_bits(num_tiles: int) -> int:
