@@ -11,6 +11,12 @@ gaussian table and the camera matrices it works out every stage again:
   ->  the stable (tile, depth) order  ->  each tile's [start, end) range  ->
   the per-pixel front-to-back blend  ->  the 8-bit quantisation.
 
+What it models.  Of the port's RenderConfig fields, it reads those in
+`MODELLED` and no others; those in `IMAGE_NEUTRAL` select how the port
+computes the frame, not which frame it computes.  The harness refuses,
+before a run, a render setting in neither set that is away from its
+default (run.render_settings).
+
 Arithmetic.  The shaders' float32 expressions are written out with the
 multiply-adds a GPU compiler contracts them to (`_fma`, one rounding, done
 in float64 where the product is exact), so the integer results (depth keys,
@@ -33,6 +39,24 @@ from typing import NamedTuple
 import torch
 
 MAX_UINT32 = 0xFFFFFFFF
+# RenderConfig fields the reference reads (through `frame_constants`).
+MODELLED = frozenset({
+    "width", "height", "tile_size", "near_plane", "far_plane", "shader_fov_y",
+    "culling_ndc_limit", "in_view_limit", "covariance_dilation", "alpha_cutoff",
+    "transmittance_stop", "sh_mode", "capacity_slack_per_tile", "capacity_pow_two",
+})
+# RenderConfig fields that leave the port's frame as it is, whatever their
+# value: the projection matrix comes with the camera, so no frame path
+# reads `proj_fov_y`; both sort tiers give the stable (tile, depth, index)
+# order; the expansion and the blend's batch are schedules; the capped
+# path's frames are exact, or flagged and counted in `failed`.
+IMAGE_NEUTRAL = frozenset({
+    "proj_fov_y", "sort_algorithm", "expansion_method", "blend_batch_k", "blend_depth_cap",
+    "blend_cap_max", "packed_slack_per_tile", "cap_escalate_margin", "thr_publish_margin",
+    "cap_decay_margin", "cap_validation_factor", "thr_reset_damp",
+})
+# getShColor's modes (Common.glsl:141-170).
+ALL_BANDS, SKIP_FIRST_BAND, ONLY_FIRST_BAND = 0, 1, 2
 SH_C = (
     0.2820947917738781, 0.4886025119029199, 0.9461746957575601, -0.31539156525252,
     1.865881662950577, -1.119528997770346, -0.48860251190292, -1.092548430592079,
@@ -69,6 +93,7 @@ class Frame(NamedTuple):
     alpha_cutoff: float
     stop: float
     capacity: int
+    sh_mode: int = ALL_BANDS
 
     @property
     def grid_w(self) -> int:
@@ -83,17 +108,27 @@ class Frame(NamedTuple):
         return self.grid_w * self.grid_h
 
 
+def ceil_pow_two(x: int) -> int:
+    """The least power of two >= x (Renderer::getCeilPowTwo)."""
+    return 1 << max(x - 1, 0).bit_length()
+
+
 def frame_constants(render: dict, num_gaussians: int) -> Frame:
-    """The constants from a configuration's `render` group; the capacity is
-    the reference's N + slack * tiles (Renderer.cpp:725), no power of two."""
+    """The constants from a cell's render settings (the configuration's
+    `render` group with the traffic's over it).  The capacity is the
+    reference's N + slack * tiles, rounded up to a power of two where
+    `capacity_pow_two` (ceilPow2, Renderer.cpp:725)."""
     w, h, t = render["width"], render["height"], render["tile_size"]
     tiles = -(-w // t) * -(-h // t)
+    capacity = num_gaussians + render["capacity_slack_per_tile"] * tiles
+    if render["capacity_pow_two"]:
+        capacity = ceil_pow_two(capacity)
     return Frame(
         width=w, height=h, tile=t, near=render["near_plane"], far=render["far_plane"],
         shader_fov_y=render["shader_fov_y"], ndc_limit=render["culling_ndc_limit"],
         in_view_limit=render["in_view_limit"], dilation=render["covariance_dilation"],
         alpha_cutoff=render["alpha_cutoff"], stop=render["transmittance_stop"],
-        capacity=num_gaussians + render["capacity_slack_per_tile"] * tiles,
+        capacity=capacity, sh_mode=int(render["sh_mode"]),
     )
 
 
@@ -249,14 +284,18 @@ def project(cloud: Cloud, view, proj, cam_pos, fr: Frame, dt=torch.float32, *,
     det_inv = torch.where(det_ok, 1.0 / det, 0.0)
     conic = torch.stack([cz, -cy, cx], dim=-1) * det_inv[:, None]
     alpha = torch.where(det_ok, cloud.opacity.to(dt), 0.0)
-    rgb = sh_colour(pos, cloud.sh.to(dt), cam_pos, dt)
+    rgb = sh_colour(pos, cloud.sh.to(dt), cam_pos, dt, fr.sh_mode)
     return Projected(visible, depth, extents, counts, torch.stack([sx, sy], -1), conic,
                      torch.cat([rgb, alpha[:, None]], dim=-1))
 
 
-def sh_colour(pos, sh, cam_pos, dt):
-    """Degree-3 SH colour seen from the camera, +0.5, clamped at 0
-    (getShEval4 and getShColor, Common.glsl:94-170)."""
+def sh_colour(pos, sh, cam_pos, dt, mode: int = ALL_BANDS):
+    """The SH colour seen from the camera in getShColor's `mode`, clamped at
+    0 (getShEval4 and getShColor, Common.glsl:94-170): ALL_BANDS the 16
+    coefficients + 0.5; SKIP_FIRST_BAND coefficients 1-15, - 0.5 + 0.5 as
+    the shader writes it; ONLY_FIRST_BAND the DC term + 0.5."""
+    if mode not in (ALL_BANDS, SKIP_FIRST_BAND, ONLY_FIRST_BAND):
+        raise ValueError(f"unknown SH mode {mode}")
     cam = torch.tensor([_r(float(c), dt) for c in cam_pos], dtype=dt, device=pos.device)
     v = pos - cam
     v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
@@ -282,9 +321,14 @@ def sh_colour(pos, sh, cam_pos, dt):
     fc2 = _fma(-fy, fs1, fx * fc1, dt)
     fs2 = _fma(fy, fc1, fx * fs1, dt)
     p[15], p[9] = c[12] * fc2, c[12] * fs2
-    acc = p[0][:, None] * sh[:, 0, :]
-    for k in range(1, 16):
+    if mode == ONLY_FIRST_BAND:
+        return torch.clamp(p[0][:, None] * sh[:, 0, :] + 0.5, min=0.0)
+    first = 0 if mode == ALL_BANDS else 1
+    acc = p[first][:, None] * sh[:, first, :]
+    for k in range(first + 1, 16):
         acc = _fma(p[k][:, None], sh[:, k, :], acc, dt)
+    if mode == SKIP_FIRST_BAND:
+        acc = acc - 0.5
     return torch.clamp(acc + 0.5, min=0.0)
 
 

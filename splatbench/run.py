@@ -5,6 +5,10 @@
 from the root of a checkout, on a machine with the CUDA cards the cell
 asks for (it exits non-zero, printing no result, without them).
 
+Before set-up, the cell's render settings are checked against what the
+reference models (`render_settings`); a setting it cannot judge is refused
+and the run exits non-zero with no result.
+
 Set-up (`setup_s`, from the process's start to the window's): import, load
 the port's CUDA library (nvcc builds it into the package's `_build/` on a
 checkout's first run), make the scene on the card from `--seed`,
@@ -95,16 +99,51 @@ def closed_loop(draw, new_event, in_flight: int, *, frames=None, seconds=None, o
     return ends, time.perf_counter() - t0
 
 
-def render_config(cell: spec.Cell):
-    """The port's RenderConfig: the configuration's `render` group with the
-    traffic's `render` settings over it."""
-    from vk3dgaussiansplatting_tpu_torch import RenderConfig, SortAlgorithm, SphericalHarmonicsMode
+def render_settings(cell: spec.Cell) -> dict:
+    """The cell's render settings: the configuration's `render` group with
+    the traffic's over it.  Refused (ValueError, naming the key): a key
+    RenderConfig lacks; a setting of the reference's MODELLED set that the
+    settings leave to RenderConfig's default, which the reference would not
+    see; and a key the reference neither models nor lists as IMAGE_NEUTRAL,
+    set away from its default."""
+    import dataclasses
+
+    from vk3dgaussiansplatting_tpu_torch import RenderConfig
+
+    from . import reference
 
     kw = dict(cell.config["render"])
     kw.update(cell.traffic.get("render", {}))
+    fields = {f.name: f for f in dataclasses.fields(RenderConfig)}
+    unknown = sorted(set(kw) - set(fields))
+    if unknown:
+        raise ValueError(f"render setting {unknown[0]!r}: RenderConfig has no such field")
+    missing = sorted(reference.MODELLED - set(kw))
+    if missing:
+        raise ValueError(f"render setting {missing[0]!r}: the reference models it, and the "
+                         f"cell leaves it to RenderConfig's default")
+    rc = _render_config(kw)
+    unmodelled = [k for k in sorted(set(kw) - reference.MODELLED - reference.IMAGE_NEUTRAL)
+                  if getattr(rc, k) != fields[k].default]
+    if unmodelled:
+        key = unmodelled[0]
+        raise ValueError(f"render setting {key!r} = {kw[key]!r}: the reference does not model "
+                         f"it, nor is it known to leave the frame as it is")
+    return kw
+
+
+def _render_config(kw: dict):
+    from vk3dgaussiansplatting_tpu_torch import RenderConfig, SortAlgorithm, SphericalHarmonicsMode
+
+    kw = dict(kw)
     kw["sh_mode"] = SphericalHarmonicsMode(kw["sh_mode"])
     kw["sort_algorithm"] = SortAlgorithm(kw["sort_algorithm"])
     return RenderConfig(**kw)
+
+
+def render_config(cell: spec.Cell):
+    """The port's RenderConfig of the cell's render settings."""
+    return _render_config(render_settings(cell))
 
 
 def power_limit() -> str | None:
@@ -126,7 +165,7 @@ def make_scene(cell: spec.Cell, seed: int, dev):
     from . import reference, scene
 
     cfg, loop = cell.config, cell.traffic["camera"]
-    fr = reference.frame_constants(cfg["render"], cfg["gaussians"])
+    fr = reference.frame_constants(render_settings(cell), cfg["gaussians"])
     if fr.capacity != cfg["capacity"]:
         raise RuntimeError(f"capacity: the reference's {fr.capacity}, the configuration's "
                            f"{cfg['capacity']}")
@@ -163,12 +202,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
             torch.cuda.synchronize()
         phases[name] = time.perf_counter() - t0 - sum(phases.values())
 
+    rc = render_config(cell)
     if on_chip:
         from vk3dgaussiansplatting_tpu_torch.ops.cuda import _build
 
         _build.load_library()
         phase("library")
-    rc = render_config(cell)
     n = cfg["gaussians"]
     if rc.sort_capacity(n) != cfg["capacity"]:
         raise RuntimeError(f"capacity: the port's {rc.sort_capacity(n)}, the configuration's "

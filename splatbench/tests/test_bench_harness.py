@@ -1,7 +1,9 @@
 """The harness driven by data: a cell added as files and BENCHMARK.json
-entries runs with no edit to an existing file; its result line has the
-contract's keys; a run without a CUDA card fails and prints no result;
-and a run with the timed path broken underneath comes out not correct."""
+entries runs with no edit to an existing file, a bitonic one at a power of
+two capacity too; its result line has the contract's keys; a render
+setting the reference cannot judge is refused before the run; a run
+without a CUDA card fails and prints no result; and a run with the timed
+path broken underneath comes out not correct."""
 
 import json
 import subprocess
@@ -42,6 +44,64 @@ def test_an_added_cell_runs_and_is_correct(root, name):
     assert all(v["value"] > 0 for v in line["metrics"].values())
     assert set(line["checks"]) == {"off1_share", "max_step"}
     json.dumps(line)
+
+
+def test_a_bitonic_cell_at_a_power_of_two_capacity_runs_and_is_correct(tmp_path):
+    """The reference renderer's other sort tier over its own capacity,
+    ceilPow2(N + slack * tiles), added as files and entries alone."""
+    cfg = tiny.tiny_config()
+    cfg = dict(cfg, capacity=131072,
+               render=dict(cfg["render"], sort_algorithm="bitonic", capacity_pow_two=True))
+    root = tiny.write_root(tmp_path, {"tiny-bitonic-orbit": ("tiny-move", tiny.traffic(0.05))},
+                           config=cfg)
+    line = _run(root, "tiny-bitonic-orbit")
+    assert line["correct"] is True, line["checks"]
+    assert line["attempted"] >= 1 and line["failed"] == 0
+
+
+def _no_scene(*args):
+    raise AssertionError("the scene was made")
+
+
+def _unknown_key(cfg, traffic, monkeypatch):
+    traffic["render"]["blend_depth_kap"] = 384
+    return "blend_depth_kap"
+
+
+def _unmodelled_off_default(cfg, traffic, monkeypatch):
+    from splatbench import reference
+
+    monkeypatch.setattr(reference, "IMAGE_NEUTRAL", reference.IMAGE_NEUTRAL - {"blend_batch_k"})
+    traffic["render"]["blend_batch_k"] = 512
+    return "blend_batch_k"
+
+
+def _modelled_left_to_default(cfg, traffic, monkeypatch):
+    del cfg["render"]["sh_mode"]
+    return "sh_mode"
+
+
+@pytest.mark.parametrize("case", [_unknown_key, _unmodelled_off_default,
+                                  _modelled_left_to_default],
+                         ids=["unknown-key", "unmodelled-off-default", "modelled-left-to-default"])
+def test_a_render_setting_the_reference_cannot_judge_is_refused(tmp_path, monkeypatch, case):
+    """Refused, naming the key, before the scene is made."""
+    cfg, traffic = tiny.tiny_config(), tiny.traffic(0.05)
+    key = case(cfg, traffic, monkeypatch)
+    root = tiny.write_root(tmp_path, {"tiny-refused": ("tiny-odd", traffic)}, config=cfg)
+    monkeypatch.setattr(run, "make_scene", _no_scene)
+    with pytest.raises(ValueError, match=repr(key)):
+        _run(root, "tiny-refused")
+
+
+def test_an_unmodelled_setting_at_its_default_is_taken(tmp_path, monkeypatch):
+    from splatbench import reference
+
+    monkeypatch.setattr(reference, "IMAGE_NEUTRAL", reference.IMAGE_NEUTRAL - {"blend_batch_k"})
+    traffic = tiny.traffic(0.05)
+    traffic["render"]["blend_batch_k"] = 768
+    root = tiny.write_root(tmp_path, {"tiny-default": ("tiny-plain", traffic)})
+    assert run.render_settings(spec.load_cell("tiny-default", root))["blend_batch_k"] == 768
 
 
 def test_the_first_frame_on_the_patch_path_is_compared(tmp_path, capsys):

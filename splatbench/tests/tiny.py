@@ -31,14 +31,14 @@ def traffic(step: float, cap: int = 0) -> dict:
 LIMITS = {"off1_share": 0.001, "max_step": 8}
 
 
-def write_root(root: Path, cells: dict[str, tuple[str, dict]]) -> Path:
+def write_root(root: Path, cells: dict[str, tuple[str, dict]], config: dict | None = None) -> Path:
     """`root`/BENCHMARK.json and splatbench/{configs,workloads,limits}
     files for `cells` {name: (traffic name, traffic)} on the tiny
-    configuration."""
+    configuration, or on `config` in its place."""
     base = root / "splatbench"
     for sub in ("configs", "workloads", "limits"):
         (base / sub).mkdir(parents=True, exist_ok=True)
-    (base / "configs" / "tiny.json").write_text(json.dumps(tiny_config()))
+    (base / "configs" / "tiny.json").write_text(json.dumps(config or tiny_config()))
     workloads = []
     for name, (tname, t) in cells.items():
         (base / "workloads" / f"{tname}.json").write_text(json.dumps(t))
