@@ -23,8 +23,11 @@
 //             slot once;
 //     merge   one pass: the distances B/2 .. 1 of the block.
 //
-// That is 30 kernels at E = 2^24 and 26 at 2^23 (ops/cuda/bitonic_kernel.py,
-// schedule / planned_passes).  A shared pass holds 32 elements a thread in
+// That is 30 kernels at E = 2^24 and 26 at 2^23.  The schedule lives in the
+// wrapper alone (ops/cuda/bitonic_kernel.py, schedule / launches), which
+// walks it and calls vk3d_bitonic_pass once a pass, so each pass can sit in
+// a tracing section; this file only maps a pass (its kind, k, lowest
+// distance and group) to its kernel.  A shared pass holds 32 elements a thread in
 // registers, 256 threads a block.  A thread's 32 elements in layout L are
 // the block slots whose bits L .. L+4 are its register index and whose
 // other bits are its thread id; the stages at distances 2^L .. 2^(L+4) run
@@ -69,6 +72,8 @@ constexpr int kTop = kLogBlock - kPerLog;  // the coalesced layout
 constexpr int kSharedThreads = 1 << kTop;
 constexpr int kGroup = 5;                  // distances a global pass fuses
 constexpr int kGlobalThreads = 256;
+// The kinds of pass vk3d_bitonic_pass runs (bitonic_kernel.KINDS).
+constexpr int kFirst = 0, kGlobal = 1, kMerge = 2;
 
 // An element in registers: the key's high word (tile), its low word (depth)
 // and the index, three 32-bit registers.
@@ -367,53 +372,53 @@ cudaError_t global_pass(int g, const Columns& c, int64_t e, int64_t k, int lo, c
   }
 }
 
-// The whole schedule; *launches counts the kernels.
-cudaError_t sort_network(const Columns& c, int64_t e, int64_t* launches, cudaStream_t s) {
-  constexpr uint32_t kBlock = 1u << kLogBlock;
-  cudaError_t err;
-  if (e <= kBlock) {  // one block: the first pass from the columns to the columns
-    err = launch_shared<true, true>(c, static_cast<uint32_t>(e), 0, 1, s);
-    if (err == cudaSuccess) ++*launches;
-    return err;
-  }
+// One pass of the schedule.  The schedule itself is the wrapper's
+// (bitonic_kernel.schedule); this only maps a pass to its kernel.
+cudaError_t run_pass(int kind, const Columns& c, int64_t e, int64_t k, int lo, int g,
+                     cudaStream_t s) {
+  constexpr int64_t kBlock = int64_t{1} << kLogBlock;
   const auto blocks = static_cast<unsigned int>(e >> kLogBlock);
-  if ((err = launch_shared<true, false>(c, kBlock, 0, blocks, s)) != cudaSuccess) {
-    return err;
-  }
-  ++*launches;
-  int lk = kLogBlock + 1;
-  for (int64_t k = 2 * int64_t{kBlock}; k <= e; k <<= 1, ++lk) {
-    for (int hi = lk - 1; hi >= kLogBlock; hi -= kGroup) {
-      const int g = hi - kLogBlock + 1 < kGroup ? hi - kLogBlock + 1 : kGroup;
-      if ((err = global_pass(g, c, e, k, hi - g + 1, s)) != cudaSuccess) return err;
-      ++*launches;
+  if (kind == kFirst) {
+    if (e <= kBlock) {  // one block: from the columns to the columns
+      return launch_shared<true, true>(c, static_cast<uint32_t>(e), 0, 1, s);
     }
-    err = k == e ? launch_shared<false, true>(c, kBlock, lk, blocks, s)
-                 : launch_shared<false, false>(c, kBlock, lk, blocks, s);
-    if (err != cudaSuccess) return err;
-    ++*launches;
+    return launch_shared<true, false>(c, kBlock, 0, blocks, s);
   }
-  return cudaSuccess;
+  // Global and merge passes run for k = 2B .. e, a power of two.
+  if (k < 2 * kBlock || k > e || (k & (k - 1))) return cudaErrorInvalidValue;
+  const int lk = __builtin_ctzll(static_cast<unsigned long long>(k));
+  if (kind == kGlobal) {
+    if (lo < kLogBlock || g < 1 || lo + g > lk) return cudaErrorInvalidValue;
+    return global_pass(g, c, e, k, lo, s);
+  }
+  if (kind == kMerge) {
+    return k == e ? launch_shared<false, true>(c, kBlock, lk, blocks, s)
+                  : launch_shared<false, false>(c, kBlock, lk, blocks, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Sorts [e] elements (e a power of two) from the int64 columns tile, depth,
-// index into out_*; keys ([e] uint64) and idx ([e] uint32) are scratch, used (and may be NULL
-// otherwise) when e > B = 2^13.  *launches receives the number of kernels
-// launched.
-extern "C" int vk3d_bitonic_sort(const void* tile, const void* depth, const void* index,
-                                 int64_t e, void* keys, void* idx, void* out_tile,
-                                 void* out_depth, void* out_index, int64_t* launches,
-                                 int32_t device, void* stream) {
-  *launches = 0;
+// Runs one pass of the sort of [e] elements (e a power of two) from the
+// int64 columns tile, depth, index into out_*: `kind` 0 the first shared
+// pass (every k <= B; to out_* when e <= B), 1 a global pass (the `group`
+// distances 2^(lo_bit+group-1) .. 2^lo_bit of k), 2 the merge of k (the
+// distances B/2 .. 1; to out_* when k == e).  keys ([e] uint64) and idx
+// ([e] uint32) are the scratch the passes hand on, used (and may be NULL
+// otherwise) when e > B = 2^13.  A pass outside the network returns
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int vk3d_bitonic_pass(int32_t kind, const void* tile, const void* depth,
+                                 const void* index, int64_t e, void* keys, void* idx,
+                                 void* out_tile, void* out_depth, void* out_index, int64_t k,
+                                 int32_t lo_bit, int32_t group, int32_t device, void* stream) {
+  if (e <= 0 || (e & (e - 1))) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (e & (e - 1)) return static_cast<int>(cudaErrorInvalidValue);
-  if (e <= 0) return static_cast<int>(cudaSuccess);
   const Columns c{static_cast<const int64_t*>(tile), static_cast<const int64_t*>(depth),
                   static_cast<const int64_t*>(index), static_cast<uint64_t*>(keys),
                   static_cast<uint32_t*>(idx), static_cast<int64_t*>(out_tile),
                   static_cast<int64_t*>(out_depth), static_cast<int64_t*>(out_index)};
-  return static_cast<int>(sort_network(c, e, launches, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      run_pass(kind, c, e, k, lo_bit, group, static_cast<cudaStream_t>(stream)));
 }

@@ -12,8 +12,12 @@ csrc/bitonic.cu) that departs from the reference's dispatch schedule: the
 network in its XOR form (slot i against i ^ j, ascending where i & k == 0),
 blocks of 2^13 elements in shared memory, and the global distances of each
 k fused five to a pass in registers — 30 kernels a sort at 2^24 slots
-where the reference's schedule takes 105.  Its stages differ from the JAX
-tier's; the sorted array, the only thing either returns, does not.
+where the reference's schedule takes 105.  The wrapper walks that schedule
+(`bitonic_kernel.schedule`) and launches it pass by pass, each pass in a
+tracing section inside the frame's `sort`: 12 `bitonic_shared` (the first
+block sort and the merges) and 18 `bitonic_global` at 2^24.  Its stages
+differ from the JAX tier's; the sorted array, the only thing either
+returns, does not.
 
 The order is lexicographic on (tile, depth, index), the uint32 values the
 port carries in int64 tensors (ops/keygen.py).  SENTINEL is the largest
@@ -69,9 +73,10 @@ def sort_elements_bitonic_plain(elements: SortElements) -> SortElements:
     return SortElements(tile=cols[0], depth=cols[1], index=cols[2], count=elements.count)
 
 
-def sort_elements_bitonic(elements: SortElements) -> SortElements:
+def sort_elements_bitonic(elements: SortElements, timer=None) -> SortElements:
     """Order the elements by (tile, depth, index): the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors, a `timer` section a pass, and the plain version on CPU
+    tensors."""
     e = elements.tile.shape[0]
     if e & (e - 1):
         raise ValueError(
@@ -80,5 +85,6 @@ def sort_elements_bitonic(elements: SortElements) -> SortElements:
         )
     if elements.tile.device.type == "cpu":
         return sort_elements_bitonic_plain(elements)
-    tile, depth, index = bitonic_kernel.bitonic_sort(elements.tile, elements.depth, elements.index)
+    tile, depth, index = bitonic_kernel.bitonic_sort(elements.tile, elements.depth, elements.index,
+                                                     timer=timer)
     return SortElements(tile=tile, depth=depth, index=index, count=elements.count)

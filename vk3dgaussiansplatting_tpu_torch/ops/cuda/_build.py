@@ -73,10 +73,10 @@ SIGNATURES = {
     "vk3d_compact_runs": ([_P, _I64, _P, _P, _I64, _I64, _I64, _P, _I32, _P], ctypes.c_int),
     # src, e, src0, ep, out, device, stream
     "vk3d_compact_segments": ([_P, _I64, _P, _I64, _P, _I32, _P], ctypes.c_int),
-    # tile, depth, index, e, keys, idx, out_tile, out_depth, out_index,
-    # launches (out), device, stream
-    "vk3d_bitonic_sort": (
-        [_P, _P, _P, _I64, _P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I32, _P], ctypes.c_int,
+    # kind, tile, depth, index, e, keys, idx, out_tile, out_depth, out_index,
+    # k, lo_bit, group, device, stream: one pass of the bitonic sort
+    "vk3d_bitonic_pass": (
+        [_I32, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P], ctypes.c_int,
     ),
     # tile, depth, index, count (or NULL), e, num_tiles, scratch, out_tile,
     # out_depth, out_index, out_perm (or NULL), launches (out), device, stream

@@ -146,11 +146,12 @@ def sort_elements_xla(elements: SortElements, num_tiles: int, *, with_perm: bool
     return (sorted_el, out[3]) if with_perm else sorted_el
 
 
-def sort_elements(elements: SortElements, config: RenderConfig) -> SortElements:
-    """Dispatch on the configured sort algorithm."""
+def sort_elements(elements: SortElements, config: RenderConfig, timer=None) -> SortElements:
+    """Dispatch on the configured sort algorithm.  `timer` reaches the
+    bitonic tier's passes; the radix sort takes none."""
     algo = config.sort_algorithm
     if algo in (SortAlgorithm.AUTO, SortAlgorithm.XLA_SORT):
         return sort_elements_xla(elements, config.num_tiles)
     if algo == SortAlgorithm.BITONIC:
-        return bitonic.sort_elements_bitonic(elements)
+        return bitonic.sort_elements_bitonic(elements, timer=timer)
     raise ValueError(f"unknown sort algorithm {algo}")

@@ -61,7 +61,7 @@ def _sorted_frame(table, view, proj, cam_pos, config, capacity, timer, depth_thr
             table, view, proj, cam_pos, config, capacity, depth_thr, timer=timer,
         )
     with section(timer, "sort"):
-        elements = sort_ops.sort_elements(elements, config)
+        elements = sort_ops.sort_elements(elements, config, timer)
     with section(timer, "ranges"):
         ranges = ranges_ops.find_ranges(elements, config.num_tiles)
     return elements, ranges, frame
