@@ -86,10 +86,13 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            one-liner the AUTO sort replaced, as library_ms), the
            bound (48 B a slot) and the network's floor (its passes x 24 B a
            slot); the kernel by kind from the profiler (fused global
-           passes, first sort, merges, last merge); four global distances a
-           pass instead of five, bit for bit and timed on the same list;
-           ptxas's registers, spills and stack of every bitonic kernel, any
-           spill or stack failing the phase
+           passes, first sort, merges, last merge); each pass alone with
+           CUDA events (`bitonic_pass_ms`): the first sort, the merges and
+           the global passes by their kernel (register or wide) and number
+           of distances; the global
+           passes and stages a sort (bitonic_kernel.GLOBAL_PASSES,
+           GLOBAL_STAGES); ptxas's registers, spills and stack of every
+           bitonic kernel, any spill or stack failing the phase
   capped   each scene again through Renderer with blend_depth_cap=384,
            blend_cap_max=4096 (the temporal capped blend), same scales:
            train7k_720p on the monolithic temporal frame (3 warm-up + 20
@@ -1450,18 +1453,23 @@ def run_bitonic(name: str, mult: float):
     del table
     e = renderer.capacity
     planned = bitonic_kernel.planned_passes(e)
+    planned_global = [len(st) for kind, st in bitonic_kernel.schedule(e) if kind == "global"]
     base = cam.position.copy()
     reset_counts()
+    bitonic_kernel.GLOBAL_PASSES = bitonic_kernel.GLOBAL_STAGES = 0
     with Capture() as cap:
         out, frame_ms, passes = timed_draws(renderer, cam, base, BITONIC_FRAMES, cap)
     drawn = WARMUP_FRAMES + BITONIC_FRAMES
     launches = read_counts()
     kernels = read_kernels()
     path = {k: launches[k] for k in BITONIC_PATH}
+    global_passes = (bitonic_kernel.GLOBAL_PASSES / drawn, bitonic_kernel.GLOBAL_STAGES / drawn)
     if (any(v != drawn for v in path.values()) or kernels["bitonic_sort"] != drawn * planned
+            or global_passes != (len(planned_global), sum(planned_global))
             or launches["radix_sort"] or kernels["radix_sort"]):
         raise RuntimeError(f"{name} bitonic: {drawn} frames launched {path}, kernels {kernels} "
-                           f"({planned} a bitonic sort planned), radix_sort "
+                           f"({planned} a bitonic sort planned), global passes and stages a sort "
+                           f"{global_passes} (planned {planned_global}), radix_sort "
                            f"{launches['radix_sort']}")
     check_image(out.image, config, f"{name} bitonic")
 
@@ -1503,12 +1511,16 @@ def run_bitonic(name: str, mult: float):
         "library_ms": cuda_ms(lambda: torch_sort_elements(el, config.num_tiles), 10),
         # The kernel by kind, from the profiler: ms and kernels a sort.
         "device_ms": device_kinds(lambda: bitonic_ops.sort_elements_bitonic(el), {
-            "fused global passes": r"bitonic_global_kernel",
+            "fused global passes": r"bitonic_(global|wide)_kernel",
             "first sort": r"bitonic_shared_kernel<true",
             "merges": r"bitonic_shared_kernel<false, false>",
             "last merge": r"bitonic_shared_kernel<false, true>",
         }),
         "kernels_per_sort": planned,
+        "global_passes_per_sort": global_passes[0],
+        "global_stages_per_sort": global_passes[1],
+        # Each pass alone (CUDA events): ms a pass by kind and distances.
+        "pass_ms": pass_kinds(bitonic_pass_ms(el, bitonic_kernel.launches(e))),
         # The network's own floor: every kernel reads and writes 12 B a slot.
         "network_floor_ms": planned * 24 * e / PEAK_BYTES_PER_S * 1e3,
         **bound(48 * e, 0),
@@ -1528,8 +1540,58 @@ def run_bitonic(name: str, mult: float):
         f"{res['library_ms']:.3f} ms; "
         f"bound {res['bound_ms']:.4f} ms (48 B a slot, {res['bound_by']}), the network's floor "
         f"{res['network_floor_ms']:.3f} ms ({planned} kernels x 24 B a slot); by kind "
-        f"{res['device_ms']}; ptxas {' | '.join(ptxas)}")
+        f"{res['device_ms']}; {global_passes[0]:g} global passes a sort running "
+        f"{global_passes[1]:g} stages; each pass alone, ms a pass (passes a sort) "
+        f"{res['pass_ms']}; ptxas {' | '.join(ptxas)}")
     return res, launches, {k: v / drawn for k, v in launches.items()}
+
+
+def bitonic_pass_ms(el, passes, iters: int = 20) -> list:
+    """Each pass of `passes` (bitonic_kernel.Launch) alone on `el`'s slots,
+    after a sort through them: [(pass, device ms)], the mean of `iters`
+    launches in place between two CUDA events.  A pass's work does not
+    depend on its data (selects, no branches), so repeating it in place
+    times it."""
+    lib = _build.load_library()
+    e = el.tile.shape[0]
+    cols = [x.contiguous() for x in el[:3]]
+    out = [torch.empty_like(x) for x in cols]
+    keys = torch.empty(e, dtype=torch.int64, device="cuda")
+    idx = torch.empty(e, dtype=torch.int32, device="cuda")
+    args = (*(x.data_ptr() for x in cols), e, keys.data_ptr(), idx.data_ptr(),
+            *(x.data_ptr() for x in out))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(p):
+        err = lib.vk3d_bitonic_pass(bitonic_kernel.KINDS[p.kind], *args, p.k, p.lo_bit, p.group,
+                                    el.tile.device.index, stream)
+        _build.check_launch(err, f"bitonic ({p.kind} pass, k {p.k}, group {p.group})")
+
+    for p in passes:
+        run(p)
+    times = []
+    for p in passes:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            run(p)
+        end.record()
+        end.synchronize()
+        times.append((p, start.elapsed_time(end) / iters))
+    return times
+
+
+def pass_kinds(times) -> dict:
+    """`bitonic_pass_ms`'s times by kind: the first sort, the merges and
+    the global passes by their kernel and number of distances, each {ms:
+    mean ms a pass, passes: a sort}, and the sort's sum."""
+    kinds = {}
+    for p, ms in times:
+        glob = bitonic_kernel.SECTIONS[p.kind] == "bitonic_global"
+        kinds.setdefault(f"{p.kind} g={p.group}" if glob else p.kind, []).append(ms)
+    out = {k: {"ms": round(statistics.mean(v), 4), "passes": len(v)} for k, v in kinds.items()}
+    out["sum_ms"] = round(sum(ms for _p, ms in times), 4)
+    return out
 
 
 def count_syncs(fn):

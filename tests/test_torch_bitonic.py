@@ -123,11 +123,27 @@ PER_THREAD_LOG = 5  # a shared pass's thread holds 2^5 elements (kPerLog)
 
 
 def slot_groups(e, lo, g):
-    """[e >> g, 2^g] int64: the slots each thread of a global pass over the
-    distances 2^lo .. 2^(lo+g-1) owns, by register (bitonic_global_kernel)."""
+    """[e >> g, 2^g] int64: the slots each thread of a register pass over
+    the distances 2^lo .. 2^(lo+g-1) owns, by register (bitonic_global_kernel)."""
     tid = torch.arange(e >> g, dtype=torch.int64)
     base = ((tid >> lo) << (lo + g)) | (tid & ((1 << lo) - 1))
     return base[:, None] + (torch.arange(1 << g, dtype=torch.int64) << lo)
+
+
+def wide_slots(e, lo, g, block):
+    """[e / block, block] int64: the list slot each block slot p of a wide
+    pass over the distances 2^lo .. 2^(lo+g-1) holds (bitonic_wide_kernel's
+    wide_slot): p's low run = log2(block) - g bits are the slot's own low
+    bits (a run of consecutive slots), p's top g bits are the slot's bits
+    lo .. lo+g-1, and the slot's other bits are the block index's, in
+    order."""
+    run = block.bit_length() - 1 - g
+    assert 0 <= run <= lo
+    p = torch.arange(block, dtype=torch.int64)
+    blk = torch.arange(e // block, dtype=torch.int64)[:, None]
+    below = lo - run
+    return ((p & ((1 << run) - 1)) | ((p >> run) << lo) | ((blk & ((1 << below) - 1)) << run)
+            | ((blk >> below) << (lo + g)))
 
 
 def layout_slots(block, b):
@@ -170,67 +186,85 @@ def _register_stage(key, idx, slots, k, m):
     _compare_exchange(key, idx, u, u | 1 << m, (slots[..., u] & k) == 0)
 
 
-def _shared_pass(key, idx, stages, block):
-    """A shared pass in numpy as the kernel runs it: each block's registers
+def _block_pass(key, idx, stages, block, where=None):
+    """A pass in numpy as the kernel runs it: each block's registers
     [threads, 32] in the coalesced layout, re-mapped through the block
-    (`layout_slots`, `layout_for`) when a stage's distance leaves the
-    layout, the all-ones padding of a lone block shorter than `block`."""
+    (`layout_slots`, `layout_for`) when a stage's block-slot bit leaves the
+    layout.  `where` [blocks, block] is the list slot of each block slot (a
+    global pass's `wide_slots`), each stage (k, j) running at the block-slot
+    bit that holds j; without it, blocks of consecutive slots (a shared
+    pass), a lone block shorter than `block` padded with all-ones triples."""
     e = key.shape[0]
-    n = min(e, block)
-    nb = e // n
-    ones = np.iinfo(np.uint64).max
-    bk = np.full((nb, block), ones, np.uint64)
-    bi = np.full((nb, block), np.uint32(SENTINEL), np.uint32)
-    bk[:, :n], bi[:, :n] = key.reshape(nb, n), idx.reshape(nb, n)
+    if where is None:
+        n = min(e, block)
+        nb = e // n
+        bk = np.full((nb, block), np.iinfo(np.uint64).max, np.uint64)
+        bi = np.full((nb, block), np.uint32(SENTINEL), np.uint32)
+        bk[:, :n], bi[:, :n] = key.reshape(nb, n), idx.reshape(nb, n)
+        slot_of = np.arange(nb, dtype=np.int64)[:, None] * block + np.arange(block)
+    else:
+        bk, bi, slot_of = key[where], idx[where], where
+    bit_of = {int(slot_of[0, 1 << x] ^ slot_of[0, 0]): x for x in range(block.bit_length() - 1)}
     top = block.bit_length() - 1 - PER_THREAD_LOG
     b, slots = top, layout_slots(block, top).numpy()
     rk, ri = bk[:, slots], bi[:, slots]
-    base = np.arange(nb, dtype=np.int64)[:, None, None] * block
     for k, j in stages:
-        x = j.bit_length() - 1
-        assert 2 * j <= block, "a shared pass's pair leaves its block"
+        assert j in bit_of, "a pass's pair leaves its block"
+        x = bit_of[j]
         if not b <= x < b + PER_THREAD_LOG:
             bk[:, slots], bi[:, slots] = rk, ri
             b = layout_for(x, block)
             slots = layout_slots(block, b).numpy()
             rk, ri = bk[:, slots], bi[:, slots]
-        _register_stage(rk, ri, base + slots, k, x - b)
+        _register_stage(rk, ri, slot_of[:, slots], k, x - b)
     bk[:, slots], bi[:, slots] = rk, ri
-    return bk[:, :n].reshape(-1), bi[:, :n].reshape(-1)
+    if where is None:
+        return bk[:, :n].reshape(-1), bi[:, :n].reshape(-1)
+    key, idx = key.copy(), idx.copy()
+    key[where], idx[where] = bk, bi
+    return key, idx
 
 
-def _run_schedule(tile, depth, idx, block, group=tbk.GROUP):
+def _run_schedule(tile, depth, idx, block, group=tbk.GROUP, wide_from=tbk.WIDE_FROM):
     """csrc/bitonic.cu's passes in numpy, compared on the packed
     (tile << 32 | depth, index) as the kernels compare them: XOR pairs
-    ascending where slot & k == 0; each global pass on its threads'
-    register groups (`slot_groups`: all of the pass's stages inside one
-    thread's row), each shared pass through its layouts (`_shared_pass`)."""
+    ascending where slot & k == 0; a global pass of fewer than `wide_from`
+    distances on its threads' register groups (`slot_groups`: all of the
+    pass's stages inside one thread's row), every other pass through its
+    block's layouts (`_block_pass`), a wide pass's blocks strided through
+    the list (`wide_slots`: all of its pairs inside one block)."""
     key = (tile.astype(np.uint64) << np.uint64(32)) | depth.astype(np.uint64)
     idx = idx.astype(np.uint32)
     e = key.shape[0]
     for kind, stages in tbk.schedule(e, block, group):
-        if kind != "global":
-            key, idx = _shared_pass(key, idx, stages, block)
-            continue
-        lo = stages[-1][1].bit_length() - 1
-        g = len(stages)
-        assert g <= group and all(j == stages[0][1] >> s for s, (_k, j) in enumerate(stages))
-        slots = slot_groups(e, lo, g).numpy()
-        rk, ri = key[slots], idx[slots]
-        for k, j in stages:
-            _register_stage(rk, ri, slots, k, j.bit_length() - 1 - lo)
-        key[slots], idx[slots] = rk, ri
+        where = None
+        if kind == "global":
+            lo, g = stages[-1][1].bit_length() - 1, len(stages)
+            assert g <= group and all(j == stages[0][1] >> s for s, (_k, j) in enumerate(stages))
+            if g < wide_from:
+                slots = slot_groups(e, lo, g).numpy()
+                rk, ri = key[slots], idx[slots]
+                for k, j in stages:
+                    _register_stage(rk, ri, slots, k, j.bit_length() - 1 - lo)
+                key[slots], idx[slots] = rk, ri
+                continue
+            where = wide_slots(e, lo, g, block).numpy()
+        key, idx = _block_pass(key, idx, stages, block, where)
     return [x.astype(np.int64) for x in (key >> np.uint64(32), key & np.uint64(0xFFFFFFFF), idx)]
 
 
 def test_kernel_schedule_sorts():
-    """The launch schedule sorts and takes 30 launches at 2^24 slots
-    (garden's bitonic capacity), 26 at 2^23 (105 and 91 on the reference's
-    dispatch schedule; 29 and 25 at B = 2^14 with four distances a global
-    pass); at small blocks and groups and at the real BLOCK the numpy model
-    of its passes equals the plain version bit for bit."""
+    """The launch schedule sorts and takes 25 launches at 2^24 slots
+    (garden's bitonic capacity), 22 at 2^23 (105 and 91 on the reference's
+    dispatch schedule; 26 and 23 with eight distances a global pass, 30 and
+    26 with five, 29 and 25 at B = 2^14 with four); at small blocks and
+    groups, every global pass wide or under six in registers, and at the
+    real BLOCK and GROUP, the numpy model of its passes equals the plain
+    version bit for bit."""
     assert [tbk.planned_passes(1 << k) for k in (0, 1, 13, 14, 18, 19, 23, 24)] == [
-        1, 1, 1, 3, 11, 14, 26, 30]
+        1, 1, 1, 3, 11, 13, 22, 25]
+    assert [tbk.planned_passes(1 << k, group=8) for k in (19, 23, 24)] == [13, 23, 26]
+    assert [tbk.planned_passes(1 << k, group=5) for k in (19, 23, 24)] == [14, 26, 30]
     assert [tbk.planned_passes(1 << k, 1 << 14, 4) for k in (23, 24)] == [25, 29]
     assert tbk.planned_passes(1 << 24, group=4) == 33
     rng = np.random.default_rng(3)
@@ -239,10 +273,11 @@ def test_kernel_schedule_sorts():
         for e in sizes:
             tile, depth, idx = _random_elements(rng, e)
             want = tbit.sort_elements_bitonic_plain(_torch_elements(tile, depth, idx))
-            got = _run_schedule(tile, depth, idx, block, group)
-            for name, g in zip(("tile", "depth", "index"), got):
-                np.testing.assert_array_equal(g, getattr(want, name).numpy(),
-                                              f"{block} {group} {e} {name}")
+            for wide_from in sorted({1, tbk.WIDE_FROM}):
+                got = _run_schedule(tile, depth, idx, block, group, wide_from)
+                for name, g in zip(("tile", "depth", "index"), got):
+                    np.testing.assert_array_equal(g, getattr(want, name).numpy(),
+                                                  f"{block} {group} {wide_from} {e} {name}")
 
 
 def _scene(name):

@@ -46,7 +46,7 @@ def _stages_of(p: tbk.Launch) -> list[tuple[int, int]]:
     from 2^(lo_bit+group-1) down, a merge the distances below BLOCK."""
     if p.kind == "first":
         return _network_stages(p.k)
-    if p.kind == "global":
+    if p.kind in ("register", "wide"):
         return [(p.k, 1 << b) for b in range(p.lo_bit + p.group - 1, p.lo_bit - 1, -1)]
     return [(p.k, 1 << b) for b in range(tbk.BLOCK.bit_length() - 2, -1, -1)]
 
@@ -135,12 +135,13 @@ def test_launches_cover_every_stage_once_in_order():
             if p.kind == "first":
                 continue
             assert 2 * tbk.BLOCK <= p.k <= e and p.k & (p.k - 1) == 0, (e, p)
-            if p.kind == "global":
-                assert 1 <= p.group <= tbk.GROUP, (e, p)
+            if p.kind in ("register", "wide"):
+                assert p.kind == tbk.kernel_kind("global", p.group), (e, p)
+                assert 1 <= p.group <= (5 if p.kind == "register" else tbk.GROUP), (e, p)
                 assert p.lo_bit >= tbk.BLOCK.bit_length() - 1, (e, p)
                 assert p.lo_bit + p.group <= p.k.bit_length() - 1, (e, p)
     sections = collections.Counter(tbk.SECTIONS[p.kind] for p in tbk.launches(1 << 24))
-    assert sections == {"bitonic_shared": 12, "bitonic_global": 18}
+    assert sections == {"bitonic_shared": 12, "bitonic_global": 13}
 
 
 def test_compare_exchange_count_is_the_plain_networks(monkeypatch):
@@ -188,7 +189,7 @@ def test_readers_need_their_sections():
 @pytest.mark.cuda
 def test_pass_sections_on_the_card():
     """On the card: a sort records `bitonic_shared` and `bitonic_global`
-    as many times as `schedule` plans (12 and 18 at 2^24), as host spans
+    as many times as `schedule` plans (12 and 13 at 2^24), as host spans
     and as CUDA events inside the caller's section; its output is the same
     bit for bit with either timer and without one, and the plain
     version's."""
@@ -197,7 +198,7 @@ def test_pass_sections_on_the_card():
     for e in (1 << 12, 1 << 16, 1 << 24):
         el = _random_elements(e, e, "cuda")
         want = tbk.bitonic_sort(*el[:3])
-        planned = collections.Counter(tbk.SECTIONS[kind] for kind, _ in tbk.schedule(e))
+        planned = collections.Counter(tbk.SECTIONS[p.kind] for p in tbk.launches(e))
         host = CudaPassTimer(device_events=False)
         with host.section("sort"):
             got_host = tbk.bitonic_sort(*el[:3], timer=host)
@@ -213,7 +214,7 @@ def test_pass_sections_on_the_card():
         for got in (got_host, got_events):
             assert all(torch.equal(a, b) for a, b in zip(got, want))
         if e == 1 << 24:
-            assert dict(planned) == {"bitonic_shared": 12, "bitonic_global": 18}
+            assert dict(planned) == {"bitonic_shared": 12, "bitonic_global": 13}
         else:
             plain = tbit.sort_elements_bitonic_plain(el)
             assert all(torch.equal(a, b) for a, b in zip(want, plain[:3]))

@@ -16,31 +16,44 @@
 //
 //   first   one pass: each block of min(E, B) elements sorted, every k <= B;
 //   for k = 2B .. E:
-//     global  one pass a group of up to kGroup = 5 distances k/2 .. B, from
-//             the largest (a k's last group may be shorter): each thread
-//             loads the 2^g slots base + u * s (s the group's smallest
-//             distance), runs the g stages in registers and stores each
-//             slot once;
+//     global  the distances k/2 .. B in the fewest passes of up to kGroup = 9
+//             distances, their sizes within one of each other (11 as 5 + 6):
+//             a register pass (2^g slots of one stride a thread, g <= 5) or
+//             a wide pass over blocks of B slots strided through the list
+//             so that each block holds both slots of every pair;
 //     merge   one pass: the distances B/2 .. 1 of the block.
 //
-// That is 30 kernels at E = 2^24 and 26 at 2^23.  The schedule lives in the
-// wrapper alone (ops/cuda/bitonic_kernel.py, schedule / launches), which
-// walks it and calls vk3d_bitonic_pass once a pass, so each pass can sit in
-// a tracing section; this file only maps a pass (its kind, k, lowest
-// distance and group) to its kernel.  A shared pass holds 32 elements a thread in
-// registers, 256 threads a block.  A thread's 32 elements in layout L are
-// the block slots whose bits L .. L+4 are its register index and whose
-// other bits are its thread id; the stages at distances 2^L .. 2^(L+4) run
-// in registers, and the elements are re-mapped through shared memory (three
-// uint32 arrays, 12 B a slot, XOR-swizzled so that no layout's warp access
-// has a bank conflict) when a stage's distance leaves the layout: a merge
-// runs in layouts 8, 3 and 0, then re-maps to layout 8, whose loads and
-// stores are coalesced.  A merge fits 128 registers a thread, so two blocks
-// share an SM and one's loads and stores overlap the other's stages; the
-// first pass, whose loop carries more, takes up to 255 and runs alone.
-// B = 2^14 (512 threads, one block an SM) led while a block ran alone on
-// its SM, and lost once the 2^13 merges ran two to an SM; its first pass
-// spilled at the 128 registers 512 threads leave a thread.
+// That is 25 kernels at E = 2^24 (13 global) and 22 at 2^23.  The schedule
+// lives in the wrapper alone (ops/cuda/bitonic_kernel.py, schedule /
+// launches), which walks it, chooses each global pass's kind and calls
+// vk3d_bitonic_pass once a pass, so each pass can sit in a tracing section;
+// this file only maps a pass (its kind, k, lowest distance and group) to its
+// kernel.  A block pass (first, merge, wide) holds 32 elements a thread in
+// registers, 256 threads a block.  A thread's 32 elements in layout L are the
+// block slots whose bits L .. L+4 are its register index and whose other bits
+// are its thread id; the stages at distances 2^L .. 2^(L+4) run in registers,
+// and the elements are re-mapped through shared memory (three uint32 arrays,
+// 12 B a slot, XOR-swizzled so that no layout's warp access has a bank
+// conflict) when a stage's distance leaves the layout: a merge runs in
+// layouts 8, 3 and 0, a wide pass in 8 and, past five distances, 3; each then
+// re-maps to layout 8, whose loads and stores are coalesced.  A merge fits
+// 128 registers a thread, so two blocks share an SM and one's loads and
+// stores overlap the other's stages; the first pass, whose loop carries more,
+// takes up to 255 and runs alone.  B = 2^14 (512 threads, one block an SM)
+// led while a block ran alone on its SM, and lost once the 2^13 merges ran
+// two to an SM; its first pass spilled at the 128 registers 512 threads leave
+// a thread.
+//
+// The wide pass spilled at 128 registers (its 32 addresses have a stride
+// known only at run time) and cost 0.18-0.22 ms a pass at 2^24 on an H100,
+// against 0.14 for a register pass; at 255 registers, one block an SM, its
+// blocks' loads, stages and stores took turns (0.14-0.19 ms).  So it stages
+// the next block's slots in shared memory (cp.async) while this block's
+// stages run: 0.152-0.168 ms for six to nine distances.  Under six, the
+// register pass is faster still (0.138-0.142 against 0.144-0.148), and
+// keeps them.  Nine distances a pass beat eight by 0.1 ms a sort at 2^24
+// and tie ten; runs of 2^(13-g) slots beat runs of 16 at every g by 0.012
+// ms a sort (PERF.md).
 //
 // Elements: the port carries tile, depth and index as uint32 values in
 // int64 columns.  The first pass packs them into a 64-bit key
@@ -56,24 +69,27 @@
 // What bounds it on the H100: bytes.  The function's floor is 48 B an
 // element (three int64 columns in, three out); the network's own floor is
 // its passes x 24 B an element, which the fused global passes cut from the
-// reference schedule's 105 passes to 30 at E = 2^24.  The shared passes run
+// reference schedule's 105 passes to 25 at E = 2^24.  The shared passes run
 // below the memory rate: their compare-exchanges are integer work, and a
 // block's loads, stages and stores take turns.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLogBlock = 13;              // B = 2^13 elements a shared pass's block
-constexpr int kPerLog = 5;                 // a shared pass's thread holds 2^5 elements
+constexpr int kLogBlock = 13;              // B = 2^13 elements a pass's block
+constexpr int kPerLog = 5;                 // a pass's thread holds 2^5 elements
 constexpr int kPer = 1 << kPerLog;
 constexpr int kTop = kLogBlock - kPerLog;  // the coalesced layout
-constexpr int kSharedThreads = 1 << kTop;
-constexpr int kGroup = 5;                  // distances a global pass fuses
-constexpr int kGlobalThreads = 256;
+constexpr int kThreads = 1 << kTop;
+// A wide pass's most distances: its block's other 13 - g bits are runs of
+// consecutive list slots, 16 or more (bitonic_kernel.GROUP).
+constexpr int kGroup = 9;
+constexpr int kRegisterGroup = 5;  // a register pass's most distances
 // The kinds of pass vk3d_bitonic_pass runs (bitonic_kernel.KINDS).
-constexpr int kFirst = 0, kGlobal = 1, kMerge = 2;
+constexpr int kFirst = 0, kRegister = 1, kMerge = 2, kWide = 3;
 
 // An element in registers: the key's high word (tile), its low word (depth)
 // and the index, three 32-bit registers.
@@ -115,17 +131,17 @@ __device__ __forceinline__ void compare_exchange(uint32_t& ha, uint32_t& la, uin
 // Registers u and v of the arrays.
 #define VK3D_PAIR(u, v) hi[u], lo[u], ix[u], hi[v], lo[v], ix[v]
 
-// ---- global passes ---------------------------------------------------------
+// ---- register passes -------------------------------------------------------
 
-// One group of G stages, distances 2^(lo_bit+G-1) .. 2^lo_bit of one k > B:
-// thread `tid` owns the slots base + u * 2^lo_bit, u < 2^G, where base is
-// tid with the bits lo_bit .. lo_bit+G-1 cleared.  k lies above the group's bits, so the
-// direction is the thread's.
+// A global pass of G <= kRegisterGroup distances 2^(lo_bit+G-1) .. 2^lo_bit
+// of one k > B: thread `tid` owns the slots base + u * 2^lo_bit, u < 2^G,
+// where base is tid with the bits lo_bit .. lo_bit+G-1 cleared.  k lies
+// above the group's bits, so the direction is the thread's.
 template <int G>
-__global__ void __launch_bounds__(kGlobalThreads)
+__global__ void __launch_bounds__(kThreads)
 bitonic_global_kernel(uint64_t* __restrict__ keys, uint32_t* __restrict__ idx, int64_t threads,
                       int64_t k, int lo_bit) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kGlobalThreads + threadIdx.x;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (tid >= threads) return;
   const int64_t s = int64_t{1} << lo_bit;
   const int64_t base = ((tid >> lo_bit) << (lo_bit + G)) | (tid & (s - 1));
@@ -153,7 +169,7 @@ bitonic_global_kernel(uint64_t* __restrict__ keys, uint32_t* __restrict__ idx, i
   }
 }
 
-// ---- shared-memory passes --------------------------------------------------
+// ---- passes through a block -------------------------------------------------
 //
 // A block of B slots held by B / 32 threads of 32 elements.  In layout L,
 // thread t's register u holds block slot layout_base(t, L) | u << L, so the
@@ -205,12 +221,14 @@ __device__ __forceinline__ void relayout(uint32_t (&hi)[kPer], uint32_t (&lo)[kP
 }
 
 // Registers, a bit each, whose pair runs descending in a stage of k = 2^lk
-// in layout b: slot i = base + (layout_base(t, b) | u << b) descends where
-// bit lk of i is set, which is the block's bit for k >= B, a register bit
+// in layout b of block `blk`: slot i = base + (layout_base(t, b) | u << b)
+// descends where bit lk of i is set, which is the block index's bit
+// lk - kLogBlock for k >= B (a global pass's slot map keeps that too), a
+// register bit
 // for b <= lk < b+5 (the thread's part is zero there) and the thread's
 // otherwise.
-__device__ __forceinline__ uint32_t descending(uint32_t t, int b, int lk) {
-  if (lk >= kLogBlock) return (blockIdx.x >> (lk - kLogBlock)) & 1u ? ~0u : 0u;
+__device__ __forceinline__ uint32_t descending(uint32_t t, int b, int lk, uint32_t blk) {
+  if (lk >= kLogBlock) return (blk >> (lk - kLogBlock)) & 1u ? ~0u : 0u;
   switch (lk - b) {
     case 0: return 0xAAAAAAAAu;
     case 1: return 0xCCCCCCCCu;
@@ -232,17 +250,17 @@ __device__ __forceinline__ void register_stage(uint32_t (&hi)[kPer], uint32_t (&
   }
 }
 
-// Stage (2^lk, 2^x) of a shared pass, re-mapping first if 2^x is outside
-// the current layout b.
+// Stage (2^lk, block-slot bit x) of a pass over block `blk`, re-mapping
+// first if x is outside the current layout b.
 __device__ __forceinline__ void shared_stage(uint32_t (&hi)[kPer], uint32_t (&lo)[kPer],
                                              uint32_t (&ix)[kPer], uint32_t* s, uint32_t t,
-                                             int& b, int lk, int x) {
+                                             int& b, int lk, int x, uint32_t blk) {
   if (x < b || x >= b + kPerLog) {
     const int to = layout_for(x);
     relayout(hi, lo, ix, s, t, b, to);
     b = to;
   }
-  const uint32_t desc = descending(t, b, lk);
+  const uint32_t desc = descending(t, b, lk, blk);
   switch (x - b) {
     case 0: register_stage<0>(hi, lo, ix, desc); break;
     case 1: register_stage<1>(hi, lo, ix, desc); break;
@@ -262,7 +280,7 @@ __device__ __forceinline__ void shared_stage(uint32_t (&hi)[kPer], uint32_t (&lo
 // a value where a 64-bit load takes two.  Loads and stores run in layout
 // kTop: consecutive threads, consecutive slots.
 template <bool kFromCols, bool kToCols>
-__global__ void __launch_bounds__(kSharedThreads, kFromCols ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, kFromCols ? 1 : 2)
 bitonic_shared_kernel(const int64_t* __restrict__ tile, const int64_t* __restrict__ depth,
                       const int64_t* __restrict__ index, uint64_t* __restrict__ keys,
                       uint32_t* __restrict__ idx, int64_t* __restrict__ out_tile,
@@ -298,12 +316,12 @@ bitonic_shared_kernel(const int64_t* __restrict__ tile, const int64_t* __restric
 #pragma unroll 1
     for (int l = 1; l <= kLogBlock; ++l) {
 #pragma unroll 1
-      for (int x = l - 1; x >= 0; --x) shared_stage(hi, lo, ix, smem, t, b, l, x);
+      for (int x = l - 1; x >= 0; --x) shared_stage(hi, lo, ix, smem, t, b, l, x, blockIdx.x);
     }
   } else {
 #pragma unroll 1
     for (int x = kLogBlock - 1; x >= 0; --x) {
-      shared_stage(hi, lo, ix, smem, t, b, lk, x);
+      shared_stage(hi, lo, ix, smem, t, b, lk, x, blockIdx.x);
     }
   }
   if (b != kTop) relayout(hi, lo, ix, smem, t, b, kTop);
@@ -326,6 +344,102 @@ bitonic_shared_kernel(const int64_t* __restrict__ tile, const int64_t* __restric
   }
 }
 
+// ---- wide passes -----------------------------------------------------------
+//
+// A wide pass runs the G <= kGroup distances 2^(lo_bit+G-1) .. 2^lo_bit of
+// k = 2^lk > B over blocks of B slots strided through the list.  Block slot
+// p holds list slot wide_slot(p): p's low run = kLogBlock - G bits are its
+// low bits, so a warp's copies cover runs of 2^run consecutive slots (16 at
+// nine distances: 128 B of keys, 64 B of index); p's top G bits are its bits
+// lo_bit .. lo_bit+G-1, the distances; its other bits are the block index's,
+// in order.  So each block holds both slots of every pair, and a slot's bit
+// lk is its block index's bit lk - kLogBlock, which `descending` reads.
+// wide_offset places p's own bits; the block index's fill the rest.
+__device__ __forceinline__ int64_t wide_offset(uint32_t p, int lo_bit, int run) {
+  return (p & ((1u << run) - 1u)) | (static_cast<int64_t>(p >> run) << lo_bit);
+}
+
+__device__ __forceinline__ int64_t wide_slot(uint32_t p, int64_t blk, int lo_bit, int run) {
+  const int below = lo_bit - run;  // the block index's bits under the distances
+  return wide_offset(p, lo_bit, run) | ((blk & ((int64_t{1} << below) - 1)) << run) |
+         ((blk >> below) << (lo_bit + kLogBlock - run));
+}
+
+// A 16-byte copy from global to shared memory that no register holds.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  const auto d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Starts the copies of block blk's slots into the staging area (sk: B keys,
+// si: B indices, in block-slot order): two keys or four indices a copy, one
+// run's neighbours, 24 copies a thread.
+__device__ __forceinline__ void stage_block(const uint64_t* keys, const uint32_t* idx,
+                                            uint64_t* sk, uint32_t* si, uint32_t t, int64_t blk,
+                                            int lo_bit, int run) {
+  constexpr uint32_t kB = 1u << kLogBlock;
+#pragma unroll
+  for (uint32_t j = 0; j < kB / 2 / kThreads; ++j) {
+    const uint32_t p = 2 * (t + j * kThreads);
+    copy16(sk + p, keys + wide_slot(p, blk, lo_bit, run));
+  }
+#pragma unroll
+  for (uint32_t j = 0; j < kB / 4 / kThreads; ++j) {
+    const uint32_t p = 4 * (t + j * kThreads);
+    copy16(si + p, idx + wide_slot(p, blk, lo_bit, run));
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// A wide pass: each resident block takes blocks blockIdx.x, + gridDim.x,
+// ... of the list in turn and stages the next one's slots into shared
+// memory while this one's stages run and its stores drain, so the pass's
+// loads overlap its integer work.  The stages run as a merge's do: those
+// at p's bits kTop .. kTop+4 in the coalesced layout, the rest after a
+// re-map to layout kTop - 5.  Shared memory: the re-map area (12 B a slot)
+// and the staging area (12 B a slot), 192 KB, one block an SM.
+__global__ void __launch_bounds__(kThreads, 1)
+bitonic_wide_kernel(uint64_t* __restrict__ keys, uint32_t* __restrict__ idx, uint32_t blocks,
+                    int lk, int lo_bit, int group) {
+  constexpr uint32_t kB = 1u << kLogBlock;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint64_t* sk = reinterpret_cast<uint64_t*>(smem + 3 * kB);
+  uint32_t* si = smem + 5 * kB;
+  const uint32_t t = threadIdx.x;
+  const int run = kLogBlock - group;
+  uint32_t blk = blockIdx.x;
+  if (blk < blocks) stage_block(keys, idx, sk, si, t, blk, lo_bit, run);
+  for (; blk < blocks; blk += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this block's slots have landed
+    uint32_t hi[kPer], lo[kPer], ix[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const uint32_t p = t | (static_cast<uint32_t>(u) << kTop);
+      const uint64_t key = sk[p];
+      hi[u] = static_cast<uint32_t>(key >> 32);
+      lo[u] = static_cast<uint32_t>(key);
+      ix[u] = si[p];
+    }
+    __syncthreads();  // the staging area is free
+    if (blk + gridDim.x < blocks) stage_block(keys, idx, sk, si, t, blk + gridDim.x, lo_bit, run);
+    int b = kTop;
+#pragma unroll 1
+    for (int x = kLogBlock - 1; x >= kLogBlock - group; --x) {
+      shared_stage(hi, lo, ix, smem, t, b, lk, x, blk);
+    }
+    if (b != kTop) relayout(hi, lo, ix, smem, t, b, kTop);
+    // Register u holds block slot t | u << kTop, whose bits are t's and u's.
+    const int64_t g0 = wide_slot(t, blk, lo_bit, run);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int64_t g = g0 | wide_offset(static_cast<uint32_t>(u) << kTop, lo_bit, run);
+      keys[g] = (static_cast<uint64_t>(hi[u]) << 32) | lo[u];
+      idx[g] = ix[u];
+    }
+  }
+}
+
 #undef VK3D_PAIR
 
 struct Columns {
@@ -339,42 +453,77 @@ struct Columns {
   int64_t* out_index;
 };
 
+// A pass of `grid` blocks with `smem` bytes of dynamic shared memory.
 // Shared memory above 48 KB needs the kernel's opt-in; a refused opt-in is
 // returned, never worked around with a smaller block.
+template <typename... Params, typename... Args>
+cudaError_t launch_blocks(void (*kernel)(Params...), unsigned int grid, int smem,
+                          cudaStream_t s, Args... args) {
+  cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
 template <bool kFromCols, bool kToCols>
 cudaError_t launch_shared(const Columns& c, uint32_t n, int lk, unsigned int blocks,
                           cudaStream_t s) {
-  constexpr int kSmem = 12 << kLogBlock;
-  cudaError_t err = cudaFuncSetAttribute(bitonic_shared_kernel<kFromCols, kToCols>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return err;
-  bitonic_shared_kernel<kFromCols, kToCols><<<blocks, kSharedThreads, kSmem, s>>>(
-          c.tile, c.depth, c.index, c.keys, c.idx, c.out_tile, c.out_depth, c.out_index, n, lk);
-  return cudaGetLastError();
+  return launch_blocks(bitonic_shared_kernel<kFromCols, kToCols>, blocks, 12 << kLogBlock, s,
+                       c.tile, c.depth, c.index, c.keys, c.idx, c.out_tile, c.out_depth,
+                       c.out_index, n, lk);
 }
 
 template <int G>
-cudaError_t launch_global(const Columns& c, int64_t e, int64_t k, int lo, cudaStream_t s) {
+cudaError_t launch_register(const Columns& c, int64_t e, int64_t k, int lo, cudaStream_t s) {
   const int64_t threads = e >> G;
-  const auto blocks = static_cast<unsigned int>((threads + kGlobalThreads - 1) / kGlobalThreads);
-  bitonic_global_kernel<G><<<blocks, kGlobalThreads, 0, s>>>(c.keys, c.idx, threads, k, lo);
+  const auto blocks = static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
+  bitonic_global_kernel<G><<<blocks, kThreads, 0, s>>>(c.keys, c.idx, threads, k, lo);
   return cudaGetLastError();
 }
 
-cudaError_t global_pass(int g, const Columns& c, int64_t e, int64_t k, int lo, cudaStream_t s) {
+// The SMs of `device`, read once a device.
+cudaError_t sm_count(int device, unsigned int* sms) {
+  static std::atomic<unsigned int> cached[64];
+  const bool cacheable = device >= 0 && device < 64;
+  if (cacheable && (*sms = cached[device].load(std::memory_order_acquire)) != 0) {
+    return cudaSuccess;
+  }
+  int n = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (n < 1) return cudaErrorInvalidConfiguration;
+  *sms = static_cast<unsigned int>(n);
+  if (cacheable) cached[device].store(*sms, std::memory_order_release);
+  return cudaSuccess;
+}
+
+// A wide pass's grid: a block an SM, or one a block of the list.
+cudaError_t launch_wide(const Columns& c, unsigned int blocks, int lk, int lo, int g, int device,
+                        cudaStream_t s) {
+  unsigned int sms = 0;
+  const cudaError_t err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  return launch_blocks(bitonic_wide_kernel, blocks < sms ? blocks : sms, 24 << kLogBlock, s,
+                       c.keys, c.idx, blocks, lk, lo, g);
+}
+
+cudaError_t launch_register_pass(const Columns& c, int64_t e, int64_t k, int lo, int g,
+                                 cudaStream_t s) {
   switch (g) {
-    case 1: return launch_global<1>(c, e, k, lo, s);
-    case 2: return launch_global<2>(c, e, k, lo, s);
-    case 3: return launch_global<3>(c, e, k, lo, s);
-    case 4: return launch_global<4>(c, e, k, lo, s);
-    case 5: return launch_global<5>(c, e, k, lo, s);
+    case 1: return launch_register<1>(c, e, k, lo, s);
+    case 2: return launch_register<2>(c, e, k, lo, s);
+    case 3: return launch_register<3>(c, e, k, lo, s);
+    case 4: return launch_register<4>(c, e, k, lo, s);
+    case 5: return launch_register<5>(c, e, k, lo, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// One pass of the schedule.  The schedule itself is the wrapper's
-// (bitonic_kernel.schedule); this only maps a pass to its kernel.
-cudaError_t run_pass(int kind, const Columns& c, int64_t e, int64_t k, int lo, int g,
+// One pass of the schedule.  The schedule itself, and the choice between a
+// register and a wide pass, are the wrapper's (bitonic_kernel.launches);
+// this only maps a pass to its kernel.
+cudaError_t run_pass(int kind, const Columns& c, int64_t e, int64_t k, int lo, int g, int device,
                      cudaStream_t s) {
   constexpr int64_t kBlock = int64_t{1} << kLogBlock;
   const auto blocks = static_cast<unsigned int>(e >> kLogBlock);
@@ -387,9 +536,11 @@ cudaError_t run_pass(int kind, const Columns& c, int64_t e, int64_t k, int lo, i
   // Global and merge passes run for k = 2B .. e, a power of two.
   if (k < 2 * kBlock || k > e || (k & (k - 1))) return cudaErrorInvalidValue;
   const int lk = __builtin_ctzll(static_cast<unsigned long long>(k));
-  if (kind == kGlobal) {
-    if (lo < kLogBlock || g < 1 || lo + g > lk) return cudaErrorInvalidValue;
-    return global_pass(g, c, e, k, lo, s);
+  if (kind == kRegister || kind == kWide) {
+    const int most = kind == kWide ? kGroup : kRegisterGroup;
+    if (lo < kLogBlock || g < 1 || g > most || lo + g > lk) return cudaErrorInvalidValue;
+    return kind == kWide ? launch_wide(c, blocks, lk, lo, g, device, s)
+                         : launch_register_pass(c, e, k, lo, g, s);
   }
   if (kind == kMerge) {
     return k == e ? launch_shared<false, true>(c, kBlock, lk, blocks, s)
@@ -402,11 +553,11 @@ cudaError_t run_pass(int kind, const Columns& c, int64_t e, int64_t k, int lo, i
 
 // Runs one pass of the sort of [e] elements (e a power of two) from the
 // int64 columns tile, depth, index into out_*: `kind` 0 the first shared
-// pass (every k <= B; to out_* when e <= B), 1 a global pass (the `group`
-// distances 2^(lo_bit+group-1) .. 2^lo_bit of k), 2 the merge of k (the
-// distances B/2 .. 1; to out_* when k == e).  keys ([e] uint64) and idx
-// ([e] uint32) are the scratch the passes hand on, used (and may be NULL
-// otherwise) when e > B = 2^13.  A pass outside the network returns
+// pass (every k <= B; to out_* when e <= B), 1 a register pass and 3 a wide
+// pass (the `group` distances 2^(lo_bit+group-1) .. 2^lo_bit of k, up to 5
+// and 9), 2 the merge of k (the distances B/2 .. 1; to out_* when k == e).
+// keys ([e] uint64) and idx ([e] uint32) are the scratch the passes hand
+// on, used (and may be NULL otherwise) when e > B = 2^13.  A pass outside the network returns
 // cudaErrorInvalidValue and launches nothing.
 extern "C" int vk3d_bitonic_pass(int32_t kind, const void* tile, const void* depth,
                                  const void* index, int64_t e, void* keys, void* idx,
@@ -420,5 +571,5 @@ extern "C" int vk3d_bitonic_pass(int32_t kind, const void* tile, const void* dep
                   static_cast<uint32_t*>(idx), static_cast<int64_t*>(out_tile),
                   static_cast<int64_t*>(out_depth), static_cast<int64_t*>(out_index)};
   return static_cast<int>(
-      run_pass(kind, c, e, k, lo_bit, group, static_cast<cudaStream_t>(stream)));
+      run_pass(kind, c, e, k, lo_bit, group, device, static_cast<cudaStream_t>(stream)));
 }

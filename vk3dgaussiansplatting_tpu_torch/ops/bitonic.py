@@ -11,11 +11,12 @@ CUDA tensors it runs a kernel (ops/cuda/bitonic_kernel.py,
 csrc/bitonic.cu) that departs from the reference's dispatch schedule: the
 network in its XOR form (slot i against i ^ j, ascending where i & k == 0),
 blocks of 2^13 elements in shared memory, and the global distances of each
-k fused five to a pass in registers — 30 kernels a sort at 2^24 slots
-where the reference's schedule takes 105.  The wrapper walks that schedule
+k fused up to nine to a pass (up to five in registers, more over blocks
+strided through the list) — 25 kernels a sort at 2^24 slots where the
+reference's schedule takes 105.  The wrapper walks that schedule
 (`bitonic_kernel.schedule`) and launches it pass by pass, each pass in a
 tracing section inside the frame's `sort`: 12 `bitonic_shared` (the first
-block sort and the merges) and 18 `bitonic_global` at 2^24.  Its stages
+block sort and the merges) and 13 `bitonic_global` at 2^24.  Its stages
 differ from the JAX tier's; the sorted array, the only thing either
 returns, does not.
 

@@ -5,10 +5,14 @@ XLA function of the JAX package, not a Pallas kernel).  The network runs in
 its XOR form (stage (k, j): slot i against i ^ j, ascending where
 i & k == 0): one shared-memory pass sorting each block of `BLOCK`
 elements, then for each k = 2·BLOCK .. E the global distances k/2 .. BLOCK
-fused `GROUP` to a pass in registers, and one shared-memory pass for the
-distances below BLOCK.  `schedule` is the network's one schedule: the
-wrapper walks it (`launches`, each pass's kind, k, lowest distance and
-group) and launches the passes one by one on the current stream through
+in passes of near-equal size, at most `GROUP` to a pass: fewer than
+`WIDE_FROM` in registers (2^g slots of one stride a thread), more over
+blocks of BLOCK slots strided through the list (runs of 2^(13-g)
+consecutive slots, the distances' bits above them); then one shared-memory
+pass for the distances below BLOCK.  `schedule` is the network's one
+schedule: the wrapper walks it (`launches`, each pass's kernel, k, lowest
+distance and group: the choice of a register or a wide pass is made there
+alone) and launches the passes one by one on the current stream through
 the C entry point `vk3d_bitonic_pass`, which maps one pass to its kernel
 and holds no schedule of its own.  Each pass sits in a tracing section
 (utils/timing.py), nested in the frame's `sort`: `bitonic_shared` for the
@@ -20,7 +24,9 @@ in [0, 2^32); the order is lexicographic on (tile, depth, index).  The
 inputs are not written; the outputs are new tensors.  Only CUDA tensors are
 taken: ops/bitonic.py runs the plain version for CPU tensors, so this
 module never falls back.  `LAUNCHES` counts sorts (calls that launched the
-network), `PASSES` the kernels those sorts launched.
+network), `PASSES` the kernels those sorts launched, `GLOBAL_PASSES` and
+`GLOBAL_STAGES` their global passes and the stages those ran (13 and 66 a
+sort at 2^24).
 """
 
 from __future__ import annotations
@@ -35,13 +41,21 @@ from . import _build
 
 LAUNCHES = 0
 PASSES = 0
+GLOBAL_PASSES = 0
+GLOBAL_STAGES = 0
 # Elements a block sorts in shared memory (csrc/bitonic.cu's kLogBlock):
 # 2^13, 12 B each in 96 KB of dynamic shared memory, 256 threads holding 32
 # elements each, two blocks an SM in a merge.
 BLOCK = 1 << 13
-# Global distances fused into one pass, 2^GROUP elements a thread
-# (csrc/bitonic.cu's kGroup); five keep a sort at 2^24 to 30 kernels.
-GROUP = 5
+# Global distances fused into one pass (csrc/bitonic.cu's kGroup, a wide
+# pass's most: its runs of 2^(13-g) consecutive slots stay 16 or more).
+# Nine take a sort at 2^24 to 25 kernels, 13 of them global (30 and 18 at
+# five).
+GROUP = 9
+# The fewest distances a global pass runs wide; a pass of fewer runs in
+# registers (at most five, csrc/bitonic.cu's kRegisterGroup), which the
+# card runs faster (PERF.md).
+WIDE_FROM = 6
 
 
 def _halving(hi: int, lo: int) -> list[int]:
@@ -57,10 +71,11 @@ def schedule(e: int, block: int = BLOCK,
     """The kernels csrc/bitonic.cu launches for `e` elements (a power of
     two), in order: each (kind, its stages (k, j) in order).  Kinds:
     "first" sorts each block of `block` elements from the columns (a lone
-    shorter block padded with all-ones triples), "global" fuses up to
-    `group` distances >= block of one k, "merge" runs the distances below
-    block of one k.  A `block` or `group` other than the kernel's serves the
-    numpy model of the passes."""
+    shorter block padded with all-ones triples), "global" fuses distances
+    >= block of one k, each k's split into the fewest passes of at most
+    `group` and sizes that differ by at most one (11 as 5 + 6), "merge" runs
+    the distances below block of one k.  A `block` or `group` other than the
+    kernel's serves the numpy model of the passes."""
     if e <= 0:
         return []
     first, k = [], 2
@@ -71,8 +86,9 @@ def schedule(e: int, block: int = BLOCK,
     k = 2 * block
     while k <= e:
         dist = _halving(k // 2, block)
-        passes += [("global", [(k, j) for j in dist[i : i + group]])
-                   for i in range(0, len(dist), group)]
+        n = -(-len(dist) // group)
+        cuts = [len(dist) * i // n for i in range(n + 1)]
+        passes += [("global", [(k, j) for j in dist[a:b]]) for a, b in zip(cuts, cuts[1:])]
         passes.append(("merge", [(k, j) for j in _halving(block // 2, 1)]))
         k *= 2
     return passes
@@ -83,17 +99,19 @@ def planned_passes(e: int, block: int = BLOCK, group: int = GROUP) -> int:
     return len(schedule(e, block, group))
 
 
-# vk3d_bitonic_pass's kind codes, and the tracing section of each kind.
-KINDS = {"first": 0, "global": 1, "merge": 2}
-SECTIONS = {"first": "bitonic_shared", "global": "bitonic_global", "merge": "bitonic_shared"}
+# vk3d_bitonic_pass's kind codes (a global pass is "register" or "wide"),
+# and the tracing section of each kind.
+KINDS = {"first": 0, "register": 1, "merge": 2, "wide": 3}
+SECTIONS = {"first": "bitonic_shared", "register": "bitonic_global", "wide": "bitonic_global",
+            "merge": "bitonic_shared"}
 
 
 class Launch(NamedTuple):
-    """One pass as the C entry point takes it: its kind, the k of its last
-    stage, the log2 of its last (lowest) distance and its number of stages.
-    The kernel reads `lo_bit` and `group` only for a global pass (the
-    distances 2^(lo_bit+group-1) .. 2^lo_bit of k); a first pass runs every
-    k up to `k`, a merge the distances below BLOCK."""
+    """One pass as the C entry point takes it: its kind (`KINDS`), the k of
+    its last stage, the log2 of its last (lowest) distance and its number of
+    stages.  The kernel reads `lo_bit` and `group` only for a global pass
+    (the distances 2^(lo_bit+group-1) .. 2^lo_bit of k); a first pass runs
+    every k up to `k`, a merge the distances below BLOCK."""
 
     kind: str
     k: int
@@ -101,11 +119,20 @@ class Launch(NamedTuple):
     group: int
 
 
+def kernel_kind(kind: str, group: int) -> str:
+    """The kernel of a `schedule` pass of `group` stages: a global pass runs
+    in registers under `WIDE_FROM` distances, else wide."""
+    if kind != "global":
+        return kind
+    return "register" if group < WIDE_FROM else "wide"
+
+
 @functools.cache
 def launches(e: int) -> tuple[Launch, ...]:
     """`schedule(e)`, pass by pass, as the C entry point's arguments
     (cached: deriving them takes ~0.1 ms of host time a sort at 2^24)."""
-    return tuple(Launch(kind, stages[-1][0], stages[-1][1].bit_length() - 1, len(stages))
+    return tuple(Launch(kernel_kind(kind, len(stages)), stages[-1][0],
+                        stages[-1][1].bit_length() - 1, len(stages))
                  for kind, stages in schedule(e))
 
 
@@ -113,7 +140,7 @@ def bitonic_sort(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor, t
     """Sort three [E] int64 CUDA columns (E a power of two) by (tile, depth,
     index); returns the sorted (tile, depth, index), new tensors.  `timer`
     (utils.timing.CudaPassTimer or None) gets a section a pass."""
-    global LAUNCHES, PASSES
+    global LAUNCHES, PASSES, GLOBAL_PASSES, GLOBAL_STAGES
     e = tile.shape[0]
     for name, x in (("tile", tile), ("depth", depth), ("index", index)):
         if x.dim() != 1 or x.dtype != torch.int64 or x.shape[0] != e:
@@ -140,5 +167,8 @@ def bitonic_sort(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor, t
             err = run_pass(KINDS[p.kind], *args, p.k, p.lo_bit, p.group, dev.index, stream)
         _build.check_launch(err, f"bitonic_sort ({p.kind} pass, k {p.k})")
         PASSES += 1
+        if SECTIONS[p.kind] == "bitonic_global":
+            GLOBAL_PASSES += 1
+            GLOBAL_STAGES += p.group
     LAUNCHES += 1
     return tuple(out)
