@@ -31,7 +31,7 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            elements ±3% (K7's counts mode); 3 warm-up + 20 timed frames with
            the camera nudged each frame; median ms/frame and per-pass ms from
            CUDA events; K7, K1, K8, the radix sort and K2 launch once a
-           frame, the radix sort's kernels (radix_kernel.PASSES) are its
+           frame, the radix sort's kernels (LAUNCHES["radix_kernels"]) are its
            planned_kernels a sort, no feature table is built, and the
            warm-up frames call no torch.sort or argsort (a
            TorchFunctionMode counts them); one more frame under
@@ -90,8 +90,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            CUDA events (`bitonic_pass_ms`): the first sort, the merges and
            the global passes by their kernel (register or wide) and number
            of distances; the global
-           passes and stages a sort (bitonic_kernel.GLOBAL_PASSES,
-           GLOBAL_STAGES); ptxas's registers, spills and stack of every
+           passes and stages a sort (LAUNCHES' "bitonic_register",
+           "bitonic_wide" and "bitonic_global_stages"); ptxas's registers, spills and stack of every
            bitonic kernel, any spill or stack failing the phase
   capped   each scene again through Renderer with blend_depth_cap=384,
            blend_cap_max=4096 (the temporal capped blend), same scales:
@@ -212,6 +212,7 @@ from vk3dgaussiansplatting_tpu_torch.ops.cuda import (
     _build, bitonic_kernel, blend_kernel, compact_kernel, expand_kernel, keygen_kernel,
     radix_kernel,
 )
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 from vk3dgaussiansplatting_tpu_torch.parallel import dist, mesh, multihost
 from vk3dgaussiansplatting_tpu_torch.pipeline import Renderer, render_frame
 from vk3dgaussiansplatting_tpu_torch.render import project
@@ -286,42 +287,28 @@ KEYGEN_FLOPS = 366
 KEYGEN_MAX_ULP = 1
 KEYGEN_MAX_FRAC = 1e-6
 
-# Launch counters of the kernel wrappers.
-COUNTERS = {
-    "expand_rows": (expand_kernel, "LAUNCHES"),
-    "expand_rows_streamed": (expand_kernel, "STREAMED_LAUNCHES"),
-    "blend_tiles": (blend_kernel, "LAUNCHES"),
-    "blend_flat": (blend_kernel, "FLAT_LAUNCHES"),
-    "compact_slabs": (compact_kernel, "SLABS_LAUNCHES"),
-    "compact_runs": (compact_kernel, "RUNS_LAUNCHES"),
-    "compact_segments": (compact_kernel, "SEGMENTS_LAUNCHES"),
-    "blend_strip": (blend_kernel, "STRIP_LAUNCHES"),
-    "bitonic_sort": (bitonic_kernel, "LAUNCHES"),
-    "keygen_project": (keygen_kernel, "LAUNCHES"),
+# The kernel launches each path is checked for: keys of `_build.LAUNCHES`,
+# but for "bitonic_sort", a bitonic sort (its one first pass).
+COUNTERS = (
+    "expand_rows", "expand_rows_streamed", "blend_tiles", "blend_flat", "compact_slabs",
+    "compact_runs", "compact_segments", "blend_strip", "bitonic_sort", "keygen_project",
     # K7 in its counts mode (count_live_elements): the steady switch's probe.
-    "keygen_count": (keygen_kernel, "COUNT_LAUNCHES"),
-    "decode_slots": (keygen_kernel, "DECODE_LAUNCHES"),
-    "radix_sort": (radix_kernel, "LAUNCHES"),
-}
-
-
-# The kernels the sorts' launches ran (their wrappers' PASSES).
-KERNEL_COUNTERS = {"bitonic_sort": bitonic_kernel, "radix_sort": radix_kernel}
+    "keygen_count", "decode_slots", "radix_sort",
+)
 
 
 def reset_counts() -> None:
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
-    for mod in KERNEL_COUNTERS.values():
-        mod.PASSES = 0
+    LAUNCHES.clear()
 
 
 def read_counts() -> dict:
-    return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
+    return {k: LAUNCHES["bitonic_first" if k == "bitonic_sort" else k] for k in COUNTERS}
 
 
 def read_kernels() -> dict:
-    return {k: mod.PASSES for k, mod in KERNEL_COUNTERS.items()}
+    """The kernels the sorts launched."""
+    return {"bitonic_sort": sum(LAUNCHES[k] for k in bitonic_kernel.COUNTER_KEYS.values()),
+            "radix_sort": LAUNCHES["radix_kernels"]}
 
 
 def call_plan(call) -> tuple[int, bool]:
@@ -439,10 +426,10 @@ class Capture:
     TARGETS = (
         (expand_kernel, "expand_rows"),
         (expand_kernel, "expand_rows_streamed"),
-        (blend_kernel, "blend_tiles"),
-        (blend_kernel, "pack_feature_table"),
-        (blend_kernel, "blend_flat"),
-        (blend_kernel, "blend_strip"),
+        (blend_ops, "blend_tiles"),
+        (blend_ops, "pack_feature_table"),
+        (blend_ops, "blend_flat"),
+        (blend_ops, "blend_strip"),
         (compact_kernel, "compact_slabs"),
         (capped_ops, "capped_finish"),
         (bitonic_ops, "sort_elements_bitonic"),
@@ -959,9 +946,9 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
     with_perm = kw.get("with_perm", False)
     el = keygen.SortElements(tile, depth, index, count)
     before = [x.clone() for x in el[:3]]
-    kernels = radix_kernel.PASSES
+    kernels = LAUNCHES["radix_kernels"]
     got = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
-    kernels = check_radix_kernels(what, call_plan(call), 1, radix_kernel.PASSES - kernels)
+    kernels = check_radix_kernels(what, call_plan(call), 1, LAUNCHES["radix_kernels"] - kernels)
     for k in range(1, RADIX_REPEATS):
         again = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -1057,12 +1044,15 @@ def radix_phases(call, what: str) -> list[dict]:
         None if count is None else count.data_ptr(), e, num_tiles, scratch.data_ptr(),
         *(x.data_ptr() for x in out[:3]), out[3].data_ptr() if with_perm else None,
         ctypes.byref(launched), tile.device.index, torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "radix_sort (phases build)")
+    if err:
+        raise _build.cuda_error(err, "radix_sort (phases build)")
     want = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
     if not all(torch.equal(a, b) for a, b in zip(out, want)):
         raise RuntimeError(f"{what}: the phases build of the radix sort differs from the kernel")
     stamps = np.zeros((radix_kernel.MAX_PASSES, 4096, RADIX_PHASE_SLOTS), np.uint64)
-    _build.check_launch(lib.vk3d_radix_phases(stamps.ctypes.data), "vk3d_radix_phases")
+    err = lib.vk3d_radix_phases(stamps.ctypes.data)
+    if err:
+        raise _build.cuda_error(err, "vk3d_radix_phases")
     n = e if count is None else min(max(int(count), 0), e)
     parts = min(-(-n // radix_kernel.TILE), 4096)
     rows = []
@@ -1195,8 +1185,8 @@ def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
     }
 
     (elements, rng_, frame, _cfg), _ = args["blend_tiles"]
-    img = blend_kernel.blend_tiles(elements, rng_, frame, config)
-    table = blend_kernel.pack_feature_table(frame)
+    img = blend_ops.blend_tiles(elements, rng_, frame, config)
+    table = blend_ops.pack_feature_table(frame)
     ref = blend_ops.blend_rows_plain(table, elements.index, rng_, config)
     check_image(img, config, f"{name} kernel blend")
     check_image(ref, config, f"{name} plain blend")
@@ -1209,9 +1199,9 @@ def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
     k2 = {
         "max_abs_err": float((img - ref).abs().max()),
         "u8": per_ch,
-        "ms": cuda_ms(lambda: blend_kernel.blend_tiles(elements, rng_, frame, config), 20),
+        "ms": cuda_ms(lambda: blend_ops.blend_tiles(elements, rng_, frame, config), 20),
         "plain_ms": cuda_ms(lambda: blend_ops.blend_rows_plain(
-            blend_kernel.pack_feature_table(frame), elements.index, rng_, config), 1),
+            blend_ops.pack_feature_table(frame), elements.index, rng_, config), 1),
         "library_ms": None,
         "blend_section_ms": passes["blend"],
         "work": work,
@@ -1456,14 +1446,14 @@ def run_bitonic(name: str, mult: float):
     planned_global = [len(st) for kind, st in bitonic_kernel.schedule(e) if kind == "global"]
     base = cam.position.copy()
     reset_counts()
-    bitonic_kernel.GLOBAL_PASSES = bitonic_kernel.GLOBAL_STAGES = 0
     with Capture() as cap:
         out, frame_ms, passes = timed_draws(renderer, cam, base, BITONIC_FRAMES, cap)
     drawn = WARMUP_FRAMES + BITONIC_FRAMES
     launches = read_counts()
     kernels = read_kernels()
     path = {k: launches[k] for k in BITONIC_PATH}
-    global_passes = (bitonic_kernel.GLOBAL_PASSES / drawn, bitonic_kernel.GLOBAL_STAGES / drawn)
+    global_passes = ((LAUNCHES["bitonic_register"] + LAUNCHES["bitonic_wide"]) / drawn,
+                     LAUNCHES["bitonic_global_stages"] / drawn)
     if (any(v != drawn for v in path.values()) or kernels["bitonic_sort"] != drawn * planned
             or global_passes != (len(planned_global), sum(planned_global))
             or launches["radix_sort"] or kernels["radix_sort"]):
@@ -1565,7 +1555,8 @@ def bitonic_pass_ms(el, passes, iters: int = 20) -> list:
     def run(p):
         err = lib.vk3d_bitonic_pass(bitonic_kernel.KINDS[p.kind], *args, p.k, p.lo_bit, p.group,
                                     el.tile.device.index, stream)
-        _build.check_launch(err, f"bitonic ({p.kind} pass, k {p.k}, group {p.group})")
+        if err:
+            raise _build.cuda_error(err, f"bitonic ({p.kind} pass, k {p.k}, group {p.group})")
 
     for p in passes:
         run(p)
@@ -1783,8 +1774,8 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
     # its plain version on the feature table: image and T bit for bit, and
     # the policy decisions from each T.
     pranges = torch.stack([lay.pstart, lay.pstart + lay.counts], dim=1)
-    table = blend_kernel.pack_feature_table(frame)
-    img, t_k = blend_kernel.blend_flat(frame, lay.gid, pranges, config, with_t=True)
+    table = blend_ops.pack_feature_table(frame)
+    img, t_k = blend_ops.blend_flat(frame, lay.gid, pranges, config, with_t=True)
     ref, t_p = blend_ops.blend_flat_plain(table, lay.gid, pranges, config, with_t=True)
     check_image(img, config, f"{name} K3")
     for what, a, b in (("image", img, ref), ("T", t_k, t_p)):
@@ -1817,10 +1808,10 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         "work": work,
         **bound(8 * work["slots_batch"] + FRAME_ROW_BYTES * work["rows_batch"] + out_bytes,
                 work["ops_batch"]),
-        "ms": cuda_ms(lambda: blend_kernel.blend_flat(frame, lay.gid, pranges, config,
+        "ms": cuda_ms(lambda: blend_ops.blend_flat(frame, lay.gid, pranges, config,
                                                       with_t=True), 20),
         "plain_ms": cuda_ms(lambda: blend_ops.blend_flat_plain(
-            blend_kernel.pack_feature_table(frame), lay.gid, pranges, config, with_t=True), 1),
+            blend_ops.pack_feature_table(frame), lay.gid, pranges, config, with_t=True), 1),
     }
 
     # K5: compact_slabs on the layout's call and on a patch pass's, against
@@ -1852,9 +1843,9 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
     chunk0 = torch.arange(ep5 // compact_kernel.CHUNK, device=src.device) * compact_kernel.CHUNK
     owner = torch.clamp(torch.searchsorted(sb, chunk0, right=True) - 1, min=0)
     src0 = astarts[owner] + chunk0 - sb[owner]
-    compact_kernel.SEGMENTS_LAUNCHES = 0
+    check_launches = LAUNCHES["compact_segments"]
     got6 = compact_kernel.compact_segments(src, src0, ep5)
-    check_launches = compact_kernel.SEGMENTS_LAUNCHES
+    check_launches = LAUNCHES["compact_segments"] - check_launches
     want6 = compact_kernel.compact_segments_plain(src, src0, ep5)
     if not torch.equal(got6, want6) or not torch.equal(got6[live], got[live]):
         raise RuntimeError(f"{name}: compact_segments differs")
@@ -1998,7 +1989,7 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
     err = 0.0
     stopped_early = 0
     for s, (a, k) in enumerate(phases):
-        got = blend_kernel.blend_strip(*a, **k)
+        got = blend_ops.blend_strip(*a, **k)
         want = blend_ops.blend_strip_plain(*a, **k)
         fault = blend_kernel.strip_mismatch(got, want, a[3].transmittance_stop)
         if fault:
@@ -2011,7 +2002,7 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
     tdist.barrier()
     if rank == 0:  # timed while the other ranks wait, so the card is this rank's
         k4["ms"] = statistics.mean(
-            cuda_ms(lambda: blend_kernel.blend_strip(*a, **k), 20) for a, k in phases)
+            cuda_ms(lambda: blend_ops.blend_strip(*a, **k), 20) for a, k in phases)
         k4["plain_ms"] = statistics.mean(
             cuda_ms(lambda: blend_ops.blend_strip_plain(*a, **k), 1) for a, k in phases)
         # The bound of the mean phase with P (K4 stops each pixel), and with
@@ -2201,7 +2192,6 @@ def phase_app(mult: float) -> dict:
 
             # The CLI again with the bitonic tier: the same PNG.
             reset_counts()
-            bitonic_kernel.PASSES = 0
             t0 = time.perf_counter()
             rc = cli.main(["--ply", path, "--width", str(width), "--height", str(height),
                            "--frames", str(APP_FRAMES), "--sort", "bitonic", "--out", png])
@@ -2211,10 +2201,10 @@ def phase_app(mult: float) -> dict:
             planned = bitonic_kernel.planned_passes(RenderConfig(width=width, height=height)
                                                     .sort_capacity(n))
             if rc != 0 or any(bitonic_launches[k] != APP_FRAMES for k in BITONIC_PATH) or (
-                    bitonic_kernel.PASSES != APP_FRAMES * planned
+                    read_kernels()["bitonic_sort"] != APP_FRAMES * planned
                     or bitonic_launches["radix_sort"]):
                 raise RuntimeError(f"app: the bitonic CLI returned {rc}, launches "
-                                   f"{bitonic_launches}, {bitonic_kernel.PASSES} kernels")
+                                   f"{bitonic_launches}, {read_kernels()['bitonic_sort']} kernels")
             got_bitonic = image_io.read_png(png)
             if not np.array_equal(got_bitonic, got):
                 raise RuntimeError("app: the CLI's --sort bitonic PNG differs from its --sort auto PNG")

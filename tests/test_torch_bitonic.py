@@ -35,6 +35,7 @@ from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
 from vk3dgaussiansplatting_tpu_torch.ops import ranges as tranges
 from vk3dgaussiansplatting_tpu_torch.ops import sort as tsort
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import bitonic_kernel as tbk
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 from vk3dgaussiansplatting_tpu_torch.pipeline import render_frame
 from vk3dgaussiansplatting_tpu_torch.render.camera import Camera
 
@@ -363,11 +364,12 @@ def test_bitonic_kernel_on_cuda():
         el = tkg.SortElements(rows[:, 0], rows[:, 1], rows[:, 2], dense.count)
         assert not el.tile.is_contiguous() or e == 1
         before = [x.clone() for x in el[:3]]
-        launches, passes = tbk.LAUNCHES, tbk.PASSES
+        counts = LAUNCHES.copy()
         got = tbit.sort_elements_bitonic(el)
         torch.cuda.synchronize()
-        assert tbk.LAUNCHES == launches + 1
-        assert tbk.PASSES - passes == tbk.planned_passes(e)
+        launched = LAUNCHES - counts
+        assert launched["bitonic_first"] == 1  # one first pass a sort
+        assert sum(launched[k] for k in tbk.COUNTER_KEYS.values()) == tbk.planned_passes(e)
         _assert_elements_equal(got, tbit.sort_elements_bitonic_plain(el), f"E={e} vs plain")
         _assert_elements_equal(got, tsort.sort_elements_xla(el, NUM_TILES), f"E={e} vs stable")
         assert int(got.count) == int(el.count)

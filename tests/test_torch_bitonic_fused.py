@@ -32,6 +32,7 @@ from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL
 from vk3dgaussiansplatting_tpu_torch.ops import bitonic as tbit
 from vk3dgaussiansplatting_tpu_torch.ops import sort as tsort
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import bitonic_kernel as tbk
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -229,12 +230,13 @@ def test_fused_kernel_on_cuda():
         want = _stable_torch_sort(el)
         _assert_elements_equal(tsort.sort_elements_xla(el, NUM_TILES), want, f"E={e} radix")
         _assert_elements_equal(tbit.sort_elements_bitonic_plain(el), want, f"E={e} plain")
-        counts = (tbk.LAUNCHES, tbk.PASSES, tbk.GLOBAL_PASSES, tbk.GLOBAL_STAGES)
+        counts = LAUNCHES.copy()
         got = tbk.bitonic_sort(*el[:3])
         torch.cuda.synchronize()
         glob = [st for kind, st in tbk.schedule(e) if kind == "global"]
-        assert (tbk.LAUNCHES - counts[0], tbk.PASSES - counts[1], tbk.GLOBAL_PASSES - counts[2],
-                tbk.GLOBAL_STAGES - counts[3]) == (
+        n = LAUNCHES - counts
+        assert (n["bitonic_first"], sum(n[k] for k in tbk.COUNTER_KEYS.values()),
+                n["bitonic_register"] + n["bitonic_wide"], n["bitonic_global_stages"]) == (
                     1, tbk.planned_passes(e), len(glob), sum(map(len, glob))), e
         if e == 1 << 24:
             assert (len(glob), sum(map(len, glob))) == (13, 66)

@@ -1,5 +1,5 @@
 """Port parity: the blend K2's plain version (ops/blend.py:blend_rows_plain,
-reached through ops/cuda/blend_kernel.py on CPU tensors) against the JAX
+reached through ops/blend.py's entry points on CPU tensors) against the JAX
 Pallas `blend_tiles_pallas` (interpret mode) and `blend_tiles_xla`, on the
 same sorted elements, ranges and frame data.
 
@@ -23,7 +23,7 @@ from vk3dgaussiansplatting_tpu.scenes import synthetic as jsyn
 from vk3dgaussiansplatting_tpu_torch import convert
 from vk3dgaussiansplatting_tpu_torch.ops import blend as tblend
 from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
-from vk3dgaussiansplatting_tpu_torch.ops.cuda import blend_kernel as tbk
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -74,9 +74,9 @@ def test_plain_blend_matches_jax(scene):
     want_xla = np.asarray(jax.jit(jblend.blend_tiles_xla, static_argnames=("config",))(
         el, rg, fr, config=CONFIG))
     te, tr, tf = _to_torch(el, rg, fr)
-    launches = tbk.LAUNCHES
-    got = tbk.blend_tiles(te, tr, tf, convert.config_from_jax(CONFIG)).numpy()
-    assert tbk.LAUNCHES == launches  # CPU tensors: plain version
+    launches = LAUNCHES["blend_tiles"]
+    got = tblend.blend_tiles(te, tr, tf, convert.config_from_jax(CONFIG)).numpy()
+    assert LAUNCHES["blend_tiles"] == launches  # CPU tensors: plain version
     _assert_close(got, want_pallas, "vs blend_tiles_pallas")
     _assert_close(got, want_xla, "vs blend_tiles_xla")
     for ch in range(3):
@@ -87,7 +87,7 @@ def test_pack_feature_table_and_gather():
     el, rg, fr = _jax_inputs(jsyn.SimpleTestGaussiansScene)
     te, _tr, tf = _to_torch(el, rg, fr)
     want = np.asarray(jax.jit(jbk.pack_feature_table)(fr))
-    np.testing.assert_array_equal(tbk.pack_feature_table(tf).numpy(), want)
+    np.testing.assert_array_equal(tblend.pack_feature_table(tf).numpy(), want)
     for a, b in zip(tblend.gather_element_features(te, tf),
                     jax.jit(jblend.gather_element_features)(el, fr)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -120,8 +120,8 @@ def test_blend_rejects_bad_inputs():
     elements = tkg.SortElements(index, index, index, torch.zeros((), dtype=torch.int64))
     ranges = torch.zeros((cfg.num_tiles, 2), dtype=torch.int64)
     with pytest.raises(ValueError):
-        tbk.blend_tiles(elements, ranges, frame._replace(color_alpha=frame.color_alpha[:, :3]), cfg)
+        tblend.blend_tiles(elements, ranges, frame._replace(color_alpha=frame.color_alpha[:, :3]), cfg)
     with pytest.raises(ValueError):
-        tbk.blend_tiles(elements._replace(index=index.to(torch.int32)), ranges, frame, cfg)
+        tblend.blend_tiles(elements._replace(index=index.to(torch.int32)), ranges, frame, cfg)
     with pytest.raises(ValueError):
-        tbk.blend_tiles(elements, ranges[:-1], frame, cfg)
+        tblend.blend_tiles(elements, ranges[:-1], frame, cfg)

@@ -32,7 +32,7 @@ from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL
 from vk3dgaussiansplatting_tpu_torch.ops import blend as tblend
 from vk3dgaussiansplatting_tpu_torch.ops import capped as tcap
 from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
-from vk3dgaussiansplatting_tpu_torch.ops.cuda import blend_kernel as tbk
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -44,7 +44,7 @@ def test_blend_flat_rejects_bad_frame(case):
     """A frame tensor K3 cannot read row by row raises (no silent copy)."""
     cfg, el, rg, frame_data = _frame_inputs()
     with pytest.raises(ValueError, match="frame"):
-        tbk.blend_flat(GUARDS[case](frame_data), el.index, rg, cfg, with_t=True)
+        tblend.blend_flat(GUARDS[case](frame_data), el.index, rg, cfg, with_t=True)
 
 
 def test_skip_threshold_drops_only_ineligible_pairs():
@@ -163,16 +163,16 @@ def test_blend_flat_kernel_on_cuda():
         pranges[last] = torch.tensor([gid.shape[0] - 5, gid.shape[0] + 60])  # past the array
         frame_c = tkg.GaussianFrameData(*(x.cuda() for x in frame_data))
         gid_c, pr_c = gid.cuda(), pranges.cuda()
-        table = tbk.pack_feature_table(frame_c)
+        table = tblend.pack_feature_table(frame_c)
         for cap in (0, 50):
             for with_t in (False, True):
-                launches = tbk.FLAT_LAUNCHES
-                got = tbk.blend_flat(frame_c, gid_c, pr_c, c, cap=cap, with_t=with_t)
-                assert tbk.FLAT_LAUNCHES == launches + 1
+                launches = LAUNCHES["blend_flat"]
+                got = tblend.blend_flat(frame_c, gid_c, pr_c, c, cap=cap, with_t=with_t)
+                assert LAUNCHES["blend_flat"] == launches + 1
                 want = tblend.blend_flat_plain(table, gid_c, pr_c, c, cap=cap, with_t=with_t)
                 for a, b in zip(got, want) if with_t else ((got, want),):
                     assert torch.equal(a, b), (batch_k, cap, with_t)
-        img, t = tbk.blend_flat(frame_c, gid_c, pr_c, c, with_t=True)
+        img, t = tblend.blend_flat(frame_c, gid_c, pr_c, c, with_t=True)
         assert bool((t[empty] == 1.0).all()) and bool((t[sat] < c.transmittance_stop).all())
         tiles = img.reshape(c.grid_height, 16, c.grid_width, 16, 3)
         sat_px = tiles[sat // c.grid_width, :, sat % c.grid_width]

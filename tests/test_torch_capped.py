@@ -33,8 +33,7 @@ from vk3dgaussiansplatting_tpu_torch import convert
 from vk3dgaussiansplatting_tpu_torch.ops import blend as tblend
 from vk3dgaussiansplatting_tpu_torch.ops import capped as tcap
 from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
-from vk3dgaussiansplatting_tpu_torch.ops.cuda import blend_kernel as tbk
-from vk3dgaussiansplatting_tpu_torch.ops.cuda import compact_kernel, expand_kernel
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -193,9 +192,9 @@ def test_capped_layout_matches_jax(kind):
         tcaps = convert.caps_state_from_jax(jcaps)
     want = _jit_layout(jel, jrg, jfr, config, jcaps)
     _ta, _tb, jgid, jlive, jpstart, jcounts, jr, jfits, jpend = (np.asarray(a) for a in want)
-    launches = (expand_kernel.LAUNCHES, compact_kernel.SLABS_LAUNCHES)
+    launches = (LAUNCHES["expand_rows"], LAUNCHES["compact_slabs"])
     lay = tcap.capped_layout(te, tr, tf, convert.config_from_jax(config), tcaps)
-    assert (expand_kernel.LAUNCHES, compact_kernel.SLABS_LAUNCHES) == launches  # CPU: plain
+    assert (LAUNCHES["expand_rows"], LAUNCHES["compact_slabs"]) == launches  # CPU: plain
     live = lay.gid.numpy() != 0xFFFFFFFF
     np.testing.assert_array_equal(live, jlive > 0)
     np.testing.assert_array_equal(lay.gid.numpy()[live], jgid[live].astype(np.int64))
@@ -213,9 +212,9 @@ def test_blend_flat_plain_matches_jax(cap, with_t):
     (jel, jrg, jfr), (te, tr, tf) = prepare(stacked_table(40, opacity=0.3), BASE)
     want = jax.jit(jbk.blend_tiles_pallas_flat, static_argnames=("config", "cap", "with_t"))(
         jel, jrg, jfr, BASE, cap=cap, with_t=with_t)
-    launches = tbk.FLAT_LAUNCHES
-    got = tbk.blend_tiles_flat(te, tr, tf, convert.config_from_jax(BASE), cap=cap, with_t=with_t)
-    assert tbk.FLAT_LAUNCHES == launches
+    launches = LAUNCHES["blend_flat"]
+    got = tblend.blend_flat(tf, te.index, tr, convert.config_from_jax(BASE), cap=cap, with_t=with_t)
+    assert LAUNCHES["blend_flat"] == launches
     if with_t:
         (got, t_got), (want, t_want) = got, want
         np.testing.assert_allclose(t_got.numpy(), np.asarray(t_want), rtol=T_RTOL, atol=T_ATOL)
@@ -266,7 +265,7 @@ def test_f16_rgb_delta():
         TEMPORAL, stacked_table(40, opacity=0.3), caps)
     table16 = rows_from_tables2(*pack_feature_tables2(tf))
     got16 = tblend.blend_flat_plain(table16, lay.gid, pranges, tcfg)
-    got32 = tblend.blend_flat_plain(tbk.pack_feature_table(tf), lay.gid, pranges, tcfg)
+    got32 = tblend.blend_flat_plain(tblend.pack_feature_table(tf), lay.gid, pranges, tcfg)
     d16 = np.abs(got16.numpy() - np.asarray(want)).max()
     d32 = np.abs(got32.numpy() - np.asarray(want)).max()
     assert_image_close(got32, want, "float32-rgb capped image")

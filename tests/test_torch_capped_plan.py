@@ -37,9 +37,10 @@ from vk3dgaussiansplatting_tpu.ops import capped as jcap
 from vk3dgaussiansplatting_tpu_torch import convert
 from vk3dgaussiansplatting_tpu_torch import pipeline as tpipe
 from vk3dgaussiansplatting_tpu_torch.core.config import RenderConfig
+from vk3dgaussiansplatting_tpu_torch.ops import blend as tblend
 from vk3dgaussiansplatting_tpu_torch.ops import capped as tcap
-from vk3dgaussiansplatting_tpu_torch.ops.cuda import blend_kernel as tbk
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import expand_kernel
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 from vk3dgaussiansplatting_tpu_torch.ops.keygen import GaussianFrameData
 
 torch.set_num_threads(1)
@@ -73,7 +74,7 @@ def test_translucent_static_cap_falls_back():
         want = jax.jit(jcap.blend_tiles_capped, static_argnames=("config",))(jel, jrg, jfr, BASE)
         got = tcap.blend_tiles_capped(te, tr, tf, tcfg)
         assert_image_close(got, want, f"static cap, opacity {opacity}")
-        full = tbk.blend_tiles_flat(te, tr, tf, tcfg)
+        full = tblend.blend_flat(tf, te.index, tr, tcfg)
         if opacity == 0.01:
             assert torch.equal(got, full)
 
@@ -121,9 +122,9 @@ def test_chained_plan_steady_switch_matches_jax():
     logs = []
     tplan._log = logs.append
     assert jplan.try_steady_switch(*jargs)
-    launches = expand_kernel.STREAMED_LAUNCHES
+    launches = LAUNCHES["expand_rows_streamed"]
     assert tplan.try_steady_switch(*targs), logs
-    assert expand_kernel.STREAMED_LAUNCHES == launches  # CPU tensors: plain version
+    assert LAUNCHES["expand_rows_streamed"] == launches  # CPU tensors: plain version
     assert tplan.mode == jplan.mode == "steady" and len(logs) == 3
     tplan.keep_intermediates = jplan.keep_intermediates = True
     for i in range(2):
@@ -254,13 +255,13 @@ def test_renderer_monolithic_temporal_matches_jax():
     tr = tpipe.Renderer(convert.config_from_jax(cfg), device="cpu")
     tr.init_for_scene(convert.table_from_jax(table))
     assert tr._plan is None and tr.temporal_caps
-    launches = tbk.FLAT_LAUNCHES
+    launches = LAUNCHES["blend_flat"]
     for i in range(3):
         j, t = jr.draw(cam), tr.draw(cam)
         assert_image_close(t.image, j.image, f"monolithic frame {i}")
         assert bool(t.ok) == bool(j.ok)
         assert_state_equal(tr._caps, jr._caps, f"monolithic frame {i}")
-    assert tbk.FLAT_LAUNCHES == launches  # CPU tensors: plain version
+    assert LAUNCHES["blend_flat"] == launches  # CPU tensors: plain version
 
 
 def test_capped_port_renders_without_jax():
@@ -308,11 +309,11 @@ def test_new_wrappers_reject_bad_inputs():
                 (frame, index.to(torch.int32), ranges), (frame, index, ranges[:-1]),
                 (frame, index, ranges.to(torch.int32))):
         with pytest.raises(ValueError):
-            tbk.blend_flat(*bad, cfg, with_t=True)
+            tblend.blend_flat(*bad, cfg, with_t=True)
     with pytest.raises(ValueError):
-        tbk.blend_flat(frame, index, ranges, cfg, cap=-1)
+        tblend.blend_flat(frame, index, ranges, cfg, cap=-1)
     with pytest.raises(ValueError):
-        tbk.blend_flat(frame, index, ranges, RenderConfig(width=64, height=48,
+        tblend.blend_flat(frame, index, ranges, RenderConfig(width=64, height=48,
                                                           blend_batch_k=100))
     cum = torch.tensor([2, 2, 5], dtype=torch.int64)
     with pytest.raises(ValueError):

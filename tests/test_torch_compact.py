@@ -12,6 +12,7 @@ import torch
 
 from vk3dgaussiansplatting_tpu.ops.pallas import compact_kernel as jck
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import compact_kernel as tck
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 CHUNK = 128
@@ -40,9 +41,9 @@ def _segments_cases():
 def test_compact_segments_matches_jax(case):
     name, src, src0, ep = next(c for c in _segments_cases() if c[0] == case)
     want = np.asarray(jck.compact_segments(jnp.asarray(src), jnp.asarray(src0), ep))
-    launches = tck.SEGMENTS_LAUNCHES
+    launches = LAUNCHES["compact_segments"]
     got = tck.compact_segments(_i64(src), _i64(src0), ep)
-    assert tck.SEGMENTS_LAUNCHES == launches  # CPU tensors: plain version
+    assert LAUNCHES["compact_segments"] == launches  # CPU tensors: plain version
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
@@ -74,9 +75,9 @@ def test_compact_runs_matches_jax(case):
     off, sbases, ep = _slab_layout(starts, counts, wmax)
     want = np.asarray(jck.compact_runs(jnp.asarray(src), jnp.asarray(starts),
                                        jnp.asarray(sbases), ep, wmax)).astype(np.int64)
-    launches = tck.RUNS_LAUNCHES
+    launches = LAUNCHES["compact_runs"]
     got = tck.compact_runs(_i64(src), _i64(starts), _i64(sbases), ep, wmax).numpy()
-    assert tck.RUNS_LAUNCHES == launches
+    assert LAUNCHES["compact_runs"] == launches
     assert got.shape == (ep,)
     for s, b, o, c in zip(starts, sbases, off, counts):
         np.testing.assert_array_equal(got[b + o : b + o + c], want[b + o : b + o + c])

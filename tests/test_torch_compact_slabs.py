@@ -23,6 +23,7 @@ from vk3dgaussiansplatting_tpu.ops.pallas import compact_kernel as jck
 from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL
 from vk3dgaussiansplatting_tpu_torch.ops import capped as tcap
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import compact_kernel as tck
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 CHUNK = 128
@@ -80,9 +81,9 @@ def _args(name, device="cpu", src_offset=0):
 def test_compact_slabs_plain_matches_jax(case):
     src, starts, counts, ep = _case(case)
     off, slabw, sbase = _slabs(starts, counts)
-    launches = tck.SLABS_LAUNCHES
+    launches = LAUNCHES["compact_slabs"]
     got = tck.compact_slabs(*_args(case)).numpy()
-    assert tck.SLABS_LAUNCHES == launches  # CPU tensors: plain version
+    assert LAUNCHES["compact_slabs"] == launches  # CPU tensors: plain version
     assert got.shape == (ep,)
 
     wmax = max(CHUNK, int(slabw.max()))
@@ -110,9 +111,9 @@ def test_compact_slabs_kernel_on_cuda():
     for case in CASES:
         for src_offset in (0, 1):
             args = _args(case, "cuda", src_offset)
-            launches = tck.SLABS_LAUNCHES
+            launches = LAUNCHES["compact_slabs"]
             got = tck.compact_slabs(*args)
-            assert tck.SLABS_LAUNCHES == launches + 1
+            assert LAUNCHES["compact_slabs"] == launches + 1
             want = tck.compact_slabs_plain(*args)
             assert torch.equal(got, want), f"{case}, source offset {src_offset}"
 
@@ -123,9 +124,9 @@ def test_compact_runs_kernel_every_lane_on_cuda():
     for case in CASES:
         src, starts, sbase, slabw, _off, _counts, ep = _args(case, "cuda")
         wmax = max(CHUNK, int(slabw.max()))
-        launches = tck.RUNS_LAUNCHES
+        launches = LAUNCHES["compact_runs"]
         got = tck.compact_runs(src, starts, sbase, ep, wmax)
-        assert tck.RUNS_LAUNCHES == launches + 1
+        assert LAUNCHES["compact_runs"] == launches + 1
         assert torch.equal(got, tck.compact_runs_plain(src, starts, sbase, ep, wmax)), case
 
 

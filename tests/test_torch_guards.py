@@ -14,7 +14,8 @@ import torch
 
 from vk3dgaussiansplatting_tpu_torch.core.config import RenderConfig, SortAlgorithm
 from vk3dgaussiansplatting_tpu_torch.ops import keygen, sort
-from vk3dgaussiansplatting_tpu_torch.ops.cuda import _build, blend_kernel, expand_kernel
+from vk3dgaussiansplatting_tpu_torch.ops.cuda import _build, expand_kernel
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 from vk3dgaussiansplatting_tpu_torch.pipeline import Renderer
 from vk3dgaussiansplatting_tpu_torch.render.camera import Camera
 from vk3dgaussiansplatting_tpu_torch.scenes import synthetic
@@ -72,8 +73,8 @@ def test_wrappers_take_plain_versions_on_cpu():
     r = Renderer(SMALL, device="cpu")
     r.init_for_scene(scene.gaussians())
     assert r.draw_numpy(scene.camera)[..., :3].any()
-    assert expand_kernel.LAUNCHES == 0
-    assert blend_kernel.LAUNCHES == 0
+    assert LAUNCHES["expand_rows"] == 0
+    assert LAUNCHES["blend_tiles"] == 0
 
 
 def test_capped_blend_with_kernels_not_ported():
@@ -83,7 +84,7 @@ def test_capped_blend_with_kernels_not_ported():
     cfg = RenderConfig(width=64, height=48, capacity_slack_per_tile=16, blend_depth_cap=256)
     scene = synthetic.SimpleTestGaussiansScene(aspect=cfg.aspect)
     scene.init()
-    launches = blend_kernel.FLAT_LAUNCHES
+    launches = LAUNCHES["blend_flat"]
     r = Renderer(cfg, device="cpu")
     assert r.temporal_caps
     r.init_for_scene(scene.gaussians())
@@ -92,7 +93,7 @@ def test_capped_blend_with_kernels_not_ported():
         assert out.ok is not None and bool(out.ok)  # the capped path's flag
         assert out.image_u8[..., :3].any()
         assert r._caps is not None and r._plan is None
-    assert blend_kernel.FLAT_LAUNCHES == launches
+    assert LAUNCHES["blend_flat"] == launches
 
 
 def test_depth_threshold_prefilter_not_ported():

@@ -30,8 +30,8 @@ from vk3dgaussiansplatting_tpu_torch.ops import blend as tblend
 from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
 from vk3dgaussiansplatting_tpu_torch.ops import ranges as tranges
 from vk3dgaussiansplatting_tpu_torch.ops import sort as tsort
-from vk3dgaussiansplatting_tpu_torch.ops.cuda import blend_kernel as tbk
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import expand_kernel as texp
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 from vk3dgaussiansplatting_tpu_torch.pipeline import render_frame
 from vk3dgaussiansplatting_tpu_torch.render.camera import Camera
 
@@ -82,7 +82,7 @@ def test_blend_tiles_rejects_bad_frame(case):
     cfg, el, rg, frame = _frame_inputs()
     bad = GUARDS[case](frame)
     with pytest.raises(ValueError, match="frame"):
-        tbk.blend_tiles(el, rg, bad, cfg)
+        tblend.blend_tiles(el, rg, bad, cfg)
 
 
 @pytest.mark.parametrize("k", [0, 1])
@@ -139,9 +139,9 @@ def test_expand_kernel_edge_cases_on_cuda():
             rng.integers(-(2**31), 2**31, size=n).astype(np.int32),
         ])).cuda()
         c = torch.cumsum(torch.from_numpy(counts).cuda(), 0)
-        launches = texp.LAUNCHES
+        launches = LAUNCHES["expand_rows"]
         got, total = texp.expand_rows(cols, c, capacity)
-        assert texp.LAUNCHES == launches + 1
+        assert LAUNCHES["expand_rows"] == launches + 1
         want, want_total = texp.expand_rows_plain(cols, c, capacity)
         assert int(total) == int(want_total) == int(counts.sum())
         assert torch.equal(got, want), f"n={n} capacity={capacity}"
@@ -173,10 +173,10 @@ def test_blend_tiles_kernel_on_cuda():
     dev = lambda x: x.cuda()
     el_c = tkg.SortElements(*(dev(x) for x in el))
     frame_c = tkg.GaussianFrameData(*(dev(x) for x in frame))
-    launches = tbk.LAUNCHES
-    got = tbk.blend_tiles(el_c, dev(rg), frame_c, cfg)
-    assert tbk.LAUNCHES == launches + 1
-    want = tblend.blend_rows_plain(tbk.pack_feature_table(frame_c), el_c.index, dev(rg), cfg)
+    launches = LAUNCHES["blend_tiles"]
+    got = tblend.blend_tiles(el_c, dev(rg), frame_c, cfg)
+    assert LAUNCHES["blend_tiles"] == launches + 1
+    want = tblend.blend_rows_plain(tblend.pack_feature_table(frame_c), el_c.index, dev(rg), cfg)
     q = lambda img: torch.round(img * 255.0).to(torch.int32)
     d = (q(got) - q(want)).abs()
     for ch in range(3):

@@ -20,7 +20,7 @@ from vk3dgaussiansplatting_tpu.render.camera import Camera
 from vk3dgaussiansplatting_tpu.scenes import synthetic as jsyn
 from vk3dgaussiansplatting_tpu_torch import convert
 from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
-from vk3dgaussiansplatting_tpu_torch.ops.cuda import expand_kernel
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -87,9 +87,9 @@ def _compare(table, cam, config, method, capacity=None):
 @pytest.mark.parametrize("scene", ["simple", "sort", "ply", "cloud0", "cloud1", "cloud2"])
 def test_keygen_matches_jax(scene, method):
     table, cam, config = _scene(scene)
-    launches = expand_kernel.LAUNCHES
+    launches = LAUNCHES["expand_rows"]
     te = _compare(table, cam, config, method)
-    assert expand_kernel.LAUNCHES == launches  # CPU tensors: plain version
+    assert LAUNCHES["expand_rows"] == launches  # CPU tensors: plain version
     count = int(te.count)
     assert count > 0
     # The sentinel tail.

@@ -34,6 +34,7 @@ from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
 from vk3dgaussiansplatting_tpu_torch.ops import prefilter
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import expand_kernel
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import keygen_kernel as kk
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -169,7 +170,7 @@ def test_plain_versions_match_jax():
         thr = _thresholds(table, cam, config) if filtered else None
         live.append(_compare_with_jax(table, config, cam, thr))
     assert live[0] > live[1] > 0  # the thresholds filtered some elements
-    assert kk.LAUNCHES == kk.COUNT_LAUNCHES == kk.DECODE_LAUNCHES == 0
+    assert LAUNCHES["keygen_project"] == LAUNCHES["keygen_count"] == LAUNCHES["decode_slots"] == 0
 
 
 EDGE_CASES = ("behind_near", "det_zero", "nan_dir", "inf_pos", "radius_off_grid", "n0_n1")
@@ -216,7 +217,7 @@ def test_launchers_reject_cpu_and_wrong_dtypes():
         kk.decode_slots(cols.to(torch.int64), total, config.grid_width)
     with pytest.raises(ValueError, match="int64"):
         kk.decode_slots(cols, total.to(torch.int32), config.grid_width)
-    assert kk.LAUNCHES == kk.COUNT_LAUNCHES == kk.DECODE_LAUNCHES == 0
+    assert LAUNCHES["keygen_project"] == LAUNCHES["keygen_count"] == LAUNCHES["decode_slots"] == 0
 
 
 @pytest.mark.cuda

@@ -31,6 +31,7 @@ from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
 from vk3dgaussiansplatting_tpu_torch.ops import prefilter
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import expand_kernel
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import keygen_kernel as kk
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -112,7 +113,7 @@ def test_plain_scan_and_elements_match_jax(scene):
         assert int(tkg.count_live_elements(tt, view, proj, cam.position, tcfg, tthr)) == total
         live.append(total)
     assert live[0] > live[1] > 0  # the thresholds filtered some elements
-    assert kk.LAUNCHES == kk.COUNT_LAUNCHES == 0
+    assert LAUNCHES["keygen_project"] == LAUNCHES["keygen_count"] == 0
 
 
 def test_expand_given_cum_equals_counts_only():
@@ -141,7 +142,7 @@ def test_expand_given_cum_equals_counts_only():
         assert not torch.equal(shifted, fn(cols, cum, total)[0])
         with pytest.raises(ValueError, match="scan"):
             fn(cols, cum.flip(0), total)
-    assert expand_kernel.LAUNCHES == expand_kernel.STREAMED_LAUNCHES == 0
+    assert LAUNCHES["expand_rows"] == LAUNCHES["expand_rows_streamed"] == 0
 
 
 # csrc/keygen.cu's status words (the flag above 62 sum bits) and its
@@ -262,13 +263,13 @@ def test_scan_guards():
         with pytest.raises(ValueError, match="one device"):
             fn(cols, torch.empty(5, dtype=torch.int64, device="meta"), 8)
     with pytest.raises(ValueError, match="device"):
-        expand_kernel._launch(cols, cum, 8)
+        expand_kernel._launch("expand_rows", cols, cum, 8)
     jtable, cam = _scene(0)
     view, proj = cam.matrices()
     with pytest.raises(ValueError, match="device"):
         kk._launch_project(convert.table_from_jax(jtable), view, proj, cam.position,
                            convert.config_from_jax(CONFIG), 64)
-    assert expand_kernel.LAUNCHES == expand_kernel.STREAMED_LAUNCHES == kk.LAUNCHES == 0
+    assert LAUNCHES["expand_rows"] == LAUNCHES["expand_rows_streamed"] == LAUNCHES["keygen_project"] == 0
 
 
 def _card_table(n, rng, cover=False):

@@ -21,7 +21,7 @@ from vk3dgaussiansplatting_tpu.render.camera import Camera
 from vk3dgaussiansplatting_tpu_torch import convert
 from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
 from vk3dgaussiansplatting_tpu_torch.ops import prefilter as tpf
-from vk3dgaussiansplatting_tpu_torch.ops.cuda import expand_kernel
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 SENTINEL = 0xFFFFFFFF
@@ -129,9 +129,9 @@ def test_filtered_keygen_streamed_matches_jax(k):
     je, _jf = _jax_keygen(*args, cfg, capacity, depth_thr=jnp.asarray(thr))
     tt, tcfg = convert.table_from_jax(table), convert.config_from_jax(cfg)
     tthr = torch.from_numpy(thr.astype(np.int64))
-    launches = (expand_kernel.LAUNCHES, expand_kernel.STREAMED_LAUNCHES)
+    launches = (LAUNCHES["expand_rows"], LAUNCHES["expand_rows_streamed"])
     te, _tf = tkg.generate_sort_elements(tt, view, proj, cam.position, tcfg, capacity, tthr)
-    assert (expand_kernel.LAUNCHES, expand_kernel.STREAMED_LAUNCHES) == launches
+    assert (LAUNCHES["expand_rows"], LAUNCHES["expand_rows_streamed"]) == launches
     for name in ("tile", "depth", "index"):
         np.testing.assert_array_equal(getattr(te, name).numpy(),
                                       np.asarray(getattr(je, name)).astype(np.int64), name)

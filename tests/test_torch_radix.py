@@ -26,6 +26,7 @@ from vk3dgaussiansplatting_tpu.parallel import dist as jd
 from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL, RenderConfig
 from vk3dgaussiansplatting_tpu_torch.ops import sort as tsort
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import radix_kernel as rk
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 from vk3dgaussiansplatting_tpu_torch.ops.keygen import SortElements
 from vk3dgaussiansplatting_tpu_torch.parallel import dist as td
 from vk3dgaussiansplatting_tpu_torch.pipeline import Renderer
@@ -223,10 +224,10 @@ def test_cpu_frame_calls_no_torch_sort():
     scene.init()
     r = Renderer(cfg, device="cpu")
     r.init_for_scene(scene.gaussians())
-    launches = rk.LAUNCHES
+    launches = LAUNCHES["radix_sort"]
     with SortCalls():
         out = r.draw(scene.camera)
-    assert SortCalls.calls == 0 and rk.LAUNCHES == launches
+    assert SortCalls.calls == 0 and LAUNCHES["radix_sort"] == launches
     assert int(out.num_elements) > 0 and out.image_u8[..., :3].any()
 
 
@@ -253,11 +254,11 @@ def test_radix_kernel_on_cuda():
         want, want_perm = _torch_sort(el, num_tiles)
         plain, plain_perm = tsort.sort_elements_radix_plain(el, num_tiles, with_perm=True)
         for with_perm in (False, True):
-            launches, passes = rk.LAUNCHES, rk.PASSES
+            launches, passes = LAUNCHES["radix_sort"], LAUNCHES["radix_kernels"]
             got = rk.radix_sort(*el[:3], el.count, num_tiles, with_perm=with_perm)
             torch.cuda.synchronize()
-            assert rk.LAUNCHES == launches + 1
-            assert rk.PASSES - passes == rk.planned_kernels(num_tiles, count is not None)
+            assert LAUNCHES["radix_sort"] == launches + 1
+            assert LAUNCHES["radix_kernels"] - passes == rk.planned_kernels(num_tiles, count is not None)
             what = f"E={e}, count {count}, with_perm {with_perm}"
             _assert_cols(got[:3], [x.cpu() for x in want], f"{what} vs torch.sort")
             _assert_cols(got[:3], [x.cpu() for x in plain[:3]], f"{what} vs plain")

@@ -27,6 +27,7 @@ import torch
 from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL
 from vk3dgaussiansplatting_tpu_torch.ops import sort as tsort
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import radix_kernel as rk
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 from vk3dgaussiansplatting_tpu_torch.ops.keygen import SortElements
 
 torch.set_num_threads(1)
@@ -266,10 +267,10 @@ def test_pipelined_kernel_edge_lists():
         el = _on_card(cols, count)
         before = [x.clone() for x in el[:3]]
         for with_perm in (False, True):
-            passes = rk.PASSES
+            passes = LAUNCHES["radix_kernels"]
             got = rk.radix_sort(*el[:3], el.count, TILES_1080P, with_perm=with_perm)
             torch.cuda.synchronize()
-            assert rk.PASSES - passes == rk.planned_kernels(TILES_1080P, count is not None)
+            assert LAUNCHES["radix_kernels"] - passes == rk.planned_kernels(TILES_1080P, count is not None)
             _check(el, got, TILES_1080P, with_perm, f"{what}, with_perm {with_perm}")
         assert all(torch.equal(a, b) for a, b in zip(before, el[:3])), f"{what}: input written"
 

@@ -1,7 +1,7 @@
 """Port parity: K4, the distributed frame's carry-aware strip blend.
 
 `blend_strip_plain` (ops/blend.py), reached through
-ops/cuda/blend_kernel.py:blend_strip on CPU tensors, against the JAX Pallas
+ops/blend.py:blend_strip on CPU tensors, against the JAX Pallas
 `blend_strip_colors_pallas` (interpret mode) on the same sorted elements,
 ranges, frame data and carries: random carries, saturated carries and
 `tile_base > 0`, with the per-gaussian table and with routed rows.  JAX's
@@ -36,6 +36,7 @@ from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL
 from vk3dgaussiansplatting_tpu_torch.ops import blend as tblend
 from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import blend_kernel as tbk
+from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -103,7 +104,7 @@ def _carries(kind, seed=5):
 
 def _rows(te, tf):
     """pack_feature_table's rows in slot order, as the exchange routes them."""
-    return tbk.pack_feature_table(tf)[torch.where(te.index == SENTINEL, 0, te.index)]
+    return tblend.pack_feature_table(tf)[torch.where(te.index == SENTINEL, 0, te.index)]
 
 
 def assert_strip_matches_plain(got, want, t_stop):
@@ -118,7 +119,7 @@ def strip_cases(te, tf):
     """(rows, gather, tile_base, carry colour, carry log T) over routed and
     gathered rows, both strips, random and saturated carries."""
     for gather in (False, True):
-        rows = tbk.pack_feature_table(tf) if gather else _rows(te, tf)
+        rows = tblend.pack_feature_table(tf) if gather else _rows(te, tf)
         for tile_base in (0, STRIP_TILES):
             for kind in ("random", "saturated"):
                 cc, cl = (torch.from_numpy(x) for x in _carries(kind, seed=5 + tile_base))
@@ -147,13 +148,13 @@ def test_strip_plain_matches_pallas(frame, case, tile_base):
     else:
         want = jbk.blend_strip_colors_pallas(jel, jrg, jfr, STRIP_CONFIG, jnp.int32(tile_base),
                                              jnp.asarray(cc), jnp.asarray(cl))
-        rows, gather = tbk.pack_feature_table(tf), True
-    launches = tbk.STRIP_LAUNCHES
-    got = tbk.blend_strip(rows, te.index, tr[tile_base:tile_base + STRIP_TILES],
+        rows, gather = tblend.pack_feature_table(tf), True
+    launches = LAUNCHES["blend_strip"]
+    got = tblend.blend_strip(rows, te.index, tr[tile_base:tile_base + STRIP_TILES],
                           convert.config_from_jax(CONFIG), tile_base=tile_base,
                           carry_color=torch.from_numpy(cc), carry_logt=torch.from_numpy(cl),
                           gather=gather)
-    assert tbk.STRIP_LAUNCHES == launches  # CPU tensors: the plain version
+    assert LAUNCHES["blend_strip"] == launches  # CPU tensors: the plain version
     _assert_strip_close(got, *want)
     colors, logt = got
     assert (colors.numpy() != cc).any()  # the strip's elements were blended
@@ -172,8 +173,8 @@ def test_strip_routed_rows_equal_table_gather(frame):
     kw = dict(tile_base=8, carry_color=cc, carry_logt=cl)
     rows = _rows(te, tf)
     rows[te.index == SENTINEL] = float("nan")
-    routed = tbk.blend_strip(rows, te.index, tr[8:16], cfg, **kw)
-    gathered = tbk.blend_strip(tbk.pack_feature_table(tf), te.index, tr[8:16], cfg, gather=True, **kw)
+    routed = tblend.blend_strip(rows, te.index, tr[8:16], cfg, **kw)
+    gathered = tblend.blend_strip(tblend.pack_feature_table(tf), te.index, tr[8:16], cfg, gather=True, **kw)
     for a, b in zip(routed, gathered):
         assert torch.equal(a, b)
     assert torch.isfinite(routed[0]).all()
@@ -184,7 +185,7 @@ def test_zero_carry_strip_equals_flat_blend(frame):
     K3's: the same clipped image and log of K3's T, bit for bit."""
     _, (te, tr, tf) = frame
     cfg = convert.config_from_jax(CONFIG)
-    table = tbk.pack_feature_table(tf)
+    table = tblend.pack_feature_table(tf)
     p = cfg.tile_size**2
     colors, logt = tblend.blend_strip_plain(
         table, te.index, tr, cfg, tile_base=0, carry_color=torch.zeros(cfg.num_tiles, p, 3),
@@ -206,10 +207,10 @@ def test_depth_bands_chain_like_one_pass(frame):
     start, end = tr[8:16, 0], tr[8:16, 1]
     mid = start + (end - start) // 2
     cc, cl = (torch.from_numpy(x) for x in _carries("random"))
-    one = tbk.blend_strip(rows, te.index, tr[8:16], cfg, tile_base=8, carry_color=cc, carry_logt=cl)
-    front = tbk.blend_strip(rows, te.index, torch.stack([start, mid], 1), cfg, tile_base=8,
+    one = tblend.blend_strip(rows, te.index, tr[8:16], cfg, tile_base=8, carry_color=cc, carry_logt=cl)
+    front = tblend.blend_strip(rows, te.index, torch.stack([start, mid], 1), cfg, tile_base=8,
                             carry_color=cc, carry_logt=cl)
-    back = tbk.blend_strip(rows, te.index, torch.stack([mid, end], 1), cfg, tile_base=8,
+    back = tblend.blend_strip(rows, te.index, torch.stack([mid, end], 1), cfg, tile_base=8,
                            carry_color=front[0], carry_logt=front[1])
     np.testing.assert_allclose(back[0].numpy(), one[0].numpy(), rtol=0, atol=1e-5)
     alive = one[1].exp() >= cfg.transmittance_stop
@@ -224,14 +225,14 @@ def test_blend_strip_guards(frame):
     p = cfg.tile_size**2
     cc, cl = torch.zeros(STRIP_TILES, p, 3), torch.zeros(STRIP_TILES, p)
     with pytest.raises(ValueError, match="carries"):
-        tbk.blend_strip(rows, te.index, tr[:8], cfg, tile_base=0, carry_color=cc[:4], carry_logt=cl)
+        tblend.blend_strip(rows, te.index, tr[:8], cfg, tile_base=0, carry_color=cc[:4], carry_logt=cl)
     with pytest.raises(ValueError, match="outside"):
-        tbk.blend_strip(rows, te.index, tr[:8], cfg, tile_base=12, carry_color=cc, carry_logt=cl)
+        tblend.blend_strip(rows, te.index, tr[:8], cfg, tile_base=12, carry_color=cc, carry_logt=cl)
     with pytest.raises(ValueError, match="rows for"):
-        tbk.blend_strip(rows[:-1], te.index, tr[:8], cfg, tile_base=0, carry_color=cc,
+        tblend.blend_strip(rows[:-1], te.index, tr[:8], cfg, tile_base=0, carry_color=cc,
                         carry_logt=cl)
     with pytest.raises(ValueError, match="int64"):
-        tbk.blend_strip(rows, te.index.int(), tr[:8], cfg, tile_base=0, carry_color=cc,
+        tblend.blend_strip(rows, te.index.int(), tr[:8], cfg, tile_base=0, carry_color=cc,
                         carry_logt=cl)
 
 
@@ -248,8 +249,8 @@ def test_strip_kernel_matches_plain_on_cuda(frame):
     for rows, gather, tile_base, cc, cl in strip_cases(te, tf):
         kw = dict(tile_base=tile_base, carry_color=cc.cuda(), carry_logt=cl.cuda(), gather=gather)
         ranges = tr[tile_base : tile_base + STRIP_TILES].cuda()
-        launches = tbk.STRIP_LAUNCHES
-        got = tbk.blend_strip(rows.cuda(), index, ranges, cfg, **kw)
-        assert tbk.STRIP_LAUNCHES == launches + 1
+        launches = LAUNCHES["blend_strip"]
+        got = tblend.blend_strip(rows.cuda(), index, ranges, cfg, **kw)
+        assert LAUNCHES["blend_strip"] == launches + 1
         want = tblend.blend_strip_plain(rows.cuda(), index, ranges, cfg, **kw)
         assert_strip_matches_plain(got, want, cfg.transmittance_stop)

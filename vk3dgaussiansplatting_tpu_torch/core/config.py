@@ -2,19 +2,21 @@
 
 The fields, defaults and derived sizes are those of the JAX package, field
 for field, so that one configuration describes the same frame in both.
-Two fields only ever shaped the TPU kernels' schedules and are kept for
-that parity alone:
+Some fields only ever chose between the TPU's schedules; they are kept for
+that parity:
 
   * `expansion_method`: "auto", "pallas" and "stream" all select the CUDA
     expansion kernel (ops/cuda/expand_kernel.py) when the tables lie on a
     CUDA device; "repeat" selects its plain PyTorch version.
-  * `blend_batch_k`: the TPU blend's lane batch.  The CUDA blend stages its
-    own fixed batch through shared memory and does not read it.
+  * `SortAlgorithm.XLA_SORT` means what `AUTO` means: the radix sort.
+
+`blend_batch_k` is the batch of the flat and strip blends, a positive
+multiple of 128 there: K3 and the plain versions of K3 and K4 read it; the
+K4 kernel checks it but stops each pixel on its own; K2 does not read it.
 
 The capped/prefilter fields (`blend_depth_cap` and the fields after it)
-belong to the temporal capped path, which this port does not have yet;
-`pipeline.Renderer` refuses `blend_depth_cap > 0` rather than blending
-uncapped.
+belong to the temporal capped path (ops/capped.py), which
+`pipeline.Renderer` runs for `blend_depth_cap > 0`.
 """
 
 from __future__ import annotations

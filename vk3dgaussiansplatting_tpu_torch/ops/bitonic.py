@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda import bitonic_kernel
+from .cuda import _build, bitonic_kernel
 from .keygen import SortElements
 
 
@@ -84,7 +84,7 @@ def sort_elements_bitonic(elements: SortElements, timer=None) -> SortElements:
             f"bitonic sort requires a power-of-two capacity, got {e} "
             "(reference: BitonicMergeSort.cpp:68)"
         )
-    if elements.tile.device.type == "cpu":
+    if not _build.on_card(*elements[:3]):
         return sort_elements_bitonic_plain(elements)
     tile, depth, index = bitonic_kernel.bitonic_sort(elements.tile, elements.depth, elements.index,
                                                      timer=timer)

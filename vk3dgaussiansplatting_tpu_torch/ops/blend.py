@@ -1,10 +1,13 @@
 """Tiled front-to-back alpha blending — the RenderGaussians pass.
 
-Port of `vk3dgaussiansplatting_tpu.ops.blend`, plus the plain PyTorch
-versions of the CUDA blends (ops/cuda/blend_kernel.py): `blend_rows_plain`
-(K2, csrc/blend.cu), `blend_flat_plain` (K3, csrc/blend_flat.cu) and
-`blend_strip_plain` (K4, csrc/blend_strip.cu, the distributed frame's
-carry-aware strip blend).  JAX's log-space `blend_strip_colors_xla` has no
+Port of `vk3dgaussiansplatting_tpu.ops.blend`.  The blends' entry points
+are `blend_tiles` (K2, csrc/blend.cu), `blend_flat` (K3, csrc/blend_flat.cu)
+and `blend_strip` (K4, csrc/blend_strip.cu, the distributed frame's
+carry-aware strip blend): each launches its CUDA kernel
+(ops/cuda/blend_kernel.py) for CUDA tensors and runs its plain PyTorch
+version here for CPU tensors (`blend_rows_plain`, `blend_flat_plain`,
+`blend_strip_plain`, reading `pack_feature_table`'s rows); none falls back
+from one to the other.  JAX's log-space `blend_strip_colors_xla` has no
 counterpart: `blend_strip_plain` takes its place, as `blend_rows_plain`
 takes `blend_tiles_xla`'s.
 
@@ -27,12 +30,102 @@ from __future__ import annotations
 import torch
 
 from ..core.config import SENTINEL, RenderConfig
+from .cuda import _build, blend_kernel
+from .cuda.blend_kernel import ALIGN_K
 from .keygen import GaussianFrameData, SortElements
 
-# Columns of the per-gaussian feature table (ops/cuda/blend_kernel.py
-# pack_feature_table): gx, gy, a' = -a/2, b' = -b, c' = -c/2, 0, r, g, b,
-# galpha.
-NUM_TABLE_COLS = 10
+
+def pack_feature_table(frame: GaussianFrameData) -> torch.Tensor:
+    """Per-gaussian blend-feature rows [N, 10] float32:
+    [gx, gy, a', b', c', 0, r, g, b, galpha].
+
+    The inverse covariance is pre-scaled (a' = -a/2, b' = -b, c' = -c/2) so
+    f = a'dx^2 + c'dy^2 + b'dxdy directly; scaling by powers of two is exact,
+    so this equals the GLSL -0.5(a dx^2 + c dy^2) - b dx dy
+    (RenderGaussians.comp:117-124) bit for bit."""
+    ci = frame.cov_inv
+    # Scalar multiplies: a scale vector made on the device would cost a
+    # host-synchronising copy per frame.
+    cov_scaled = torch.stack([ci[:, 0] * -0.5, ci[:, 1] * -1.0, ci[:, 2] * -0.5], dim=-1)
+    zeros = torch.zeros_like(frame.screen_pos[:, :1])
+    return torch.cat(
+        [frame.screen_pos, cov_scaled, zeros, frame.color_alpha], dim=-1
+    ).contiguous()
+
+
+def blend_tiles(
+    elements: SortElements,
+    ranges: torch.Tensor,
+    frame: GaussianFrameData,
+    config: RenderConfig,
+) -> torch.Tensor:
+    """K2: blend all tiles of a sorted frame (blend_tiles_pallas's
+    signature); returns float32 [H, W, 3] in [0, 1].
+
+    The kernel reads frame.screen_pos [N, 2], frame.cov_inv [N, 3] and
+    frame.color_alpha [N, 4] (contiguous float32) by the sorted gaussian ids
+    elements.index [E] int64 (SENTINEL if dead); ranges: [num_tiles, 2]
+    int64.  On CPU tensors: blend_rows_plain on pack_feature_table(frame)."""
+    if _build.on_card(*frame, elements.index, ranges):
+        return blend_kernel.blend_tiles(frame, elements.index, ranges, config)
+    blend_kernel.check_frame(frame, elements.index, ranges, config)
+    return blend_rows_plain(pack_feature_table(frame), elements.index, ranges, config)
+
+
+def blend_flat(
+    frame: GaussianFrameData,
+    index: torch.Tensor,
+    ranges: torch.Tensor,
+    config: RenderConfig,
+    *,
+    cap: int = 0,
+    with_t: bool = False,
+):
+    """K3: blend every tile's [start, end) of `index` with the TPU flat
+    kernel's transmittance semantics (blend_flat_plain).
+
+    The kernel reads frame.screen_pos [N, 2], frame.cov_inv [N, 3] and
+    frame.color_alpha [N, 4] (contiguous float32, as K2) by the gaussian ids
+    index [E] int64 (SENTINEL, and slots >= E, are dead); ranges:
+    [num_tiles, 2] int64; cap > 0 cuts each range to its first `cap`
+    elements.  Returns the [H, W, 3] float32 image in [0, 1], and with
+    `with_t` also the per-pixel outgoing transmittance [num_tiles, 256]
+    float32; the kernel's equal the plain version's bit for bit.  On CPU
+    tensors: blend_flat_plain on pack_feature_table(frame)."""
+    if _build.on_card(*frame, index, ranges):
+        return blend_kernel.blend_flat(frame, index, ranges, config, cap=cap, with_t=with_t)
+    blend_kernel.check_flat(frame, index, ranges, config, cap)
+    return blend_flat_plain(pack_feature_table(frame), index, ranges, config, cap=cap,
+                            with_t=with_t)
+
+
+def blend_strip(
+    rows: torch.Tensor,
+    index: torch.Tensor,
+    ranges: torch.Tensor,
+    config: RenderConfig,
+    *,
+    tile_base: int,
+    carry_color: torch.Tensor,
+    carry_logt: torch.Tensor,
+    gather: bool = False,
+):
+    """K4: blend strip tiles [tile_base, tile_base + T_s) from the incoming
+    (colour, log T) carry (blend_strip_plain has the semantics).
+
+    rows: [E, 10] float32 rows in slot order, or with `gather` the [N, 10]
+    per-gaussian table read by `index` (pack_feature_table's columns,
+    8-byte aligned on the card); index: [E] int64 gaussian ids (SENTINEL,
+    and slots >= E, are dead); ranges: [T_s, 2] int64 into the slots;
+    carry_color: [T_s, 256, 3] float32; carry_logt: [T_s, 256] float32.
+    Returns (colors [T_s, 256, 3] unclipped, logt_end [T_s, 256]); on the
+    card log T may differ where T is below the stop
+    (ops/cuda/blend_kernel.py:blend_strip)."""
+    kw = dict(tile_base=tile_base, carry_color=carry_color, carry_logt=carry_logt, gather=gather)
+    if _build.on_card(rows, index, ranges, carry_color, carry_logt):
+        return blend_kernel.blend_strip(rows, index, ranges, config, **kw)
+    blend_kernel.check_strip(rows, index, ranges, config, **kw)
+    return blend_strip_plain(rows, index, ranges, config, **kw)
 
 
 def gather_element_features(elements: SortElements, frame: GaussianFrameData):
@@ -104,11 +197,6 @@ def blend_rows_plain(
         trans[act] = t_new
         done[act] |= t_new < stop
     return assemble_tile_colors(color, config)
-
-
-# Batch starts of the JAX flat blend (blend_kernel.py:496): each tile's
-# first batch begins at its range start rounded down to this alignment.
-ALIGN_K = 128
 
 
 def blend_flat_plain(

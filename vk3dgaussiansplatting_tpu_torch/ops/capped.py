@@ -56,7 +56,8 @@ import torch
 
 from ..core.config import SENTINEL, RenderConfig
 from ..utils.timing import read_back, section
-from .cuda import blend_kernel, compact_kernel
+from . import blend as blend_ops
+from .cuda import compact_kernel
 from .keygen import GaussianFrameData, SortElements
 from .search import two_level_lex_search
 
@@ -235,7 +236,7 @@ def blend_tiles_capped(elements, ranges, frame, config: RenderConfig, *, timer=N
     `timer` records the branch's read-back as a `sync` span."""
     cap = config.blend_depth_cap
     assert 0 < cap <= config.blend_cap_max
-    blend = blend_kernel.blend_flat
+    blend = blend_ops.blend_flat
     ep = packed_capacity(config, elements.tile.shape[0])
     caps = torch.full((config.num_tiles,), cap, dtype=torch.int64, device=ranges.device)
     lay = _layout(elements, ranges, config, caps, None, ep)
@@ -323,7 +324,7 @@ def _patch_pass(img, valid, elements, ranges, frame, config: RenderConfig):
     count_t = torch.zeros(t + 1, dtype=torch.int64, device=device).scatter_add_(
         0, slot, r_p)[:t]
     pranges = torch.stack([pstart_t, pstart_t + count_t], dim=1)
-    img_p = blend_kernel.blend_flat(frame, gid, pranges, config)
+    img_p = blend_ops.blend_flat(frame, gid, pranges, config)
 
     gh, gw, ts = config.grid_height, config.grid_width, config.tile_size
     vmask = valid.reshape(gh, 1, gw, 1).expand(gh, ts, gw, ts).reshape(gh * ts, gw * ts)
@@ -338,7 +339,7 @@ def capped_finish(lay: CappedLayout, caps, elements, ranges, frame, config: Rend
 
     Returns (img [H, W, 3], caps_next (the kind of `caps`), ok [] bool,
     stats [5] int64 = (n_invalid, fits, packed_end, n_grow, n_unfix))."""
-    blend = blend_kernel.blend_flat
+    blend = blend_ops.blend_flat
     c, thr, floor = _split_caps(caps, config)
     with section(timer, "blend"):
         pranges = torch.stack([lay.pstart, lay.pstart + lay.counts], dim=1)

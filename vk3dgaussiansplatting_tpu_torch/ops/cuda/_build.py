@@ -10,10 +10,37 @@ the existing file.  Nothing here runs at import: the first kernel launch
 calls `load_library()`.  A missing `nvcc` or a failed compile raises;
 there is no fallback.  ptxas's resource report
 (-Xptxas=-v) is kept beside the library as `<library>.log`.
+
+It is also the one seam between the ops and their kernels.  `on_card`
+makes the CPU-or-card choice: an entry point with a plain twin calls it at
+its top and runs the kernel for CUDA tensors, the twin for CPU tensors, and
+raises for any other device; a wrapper that only launches takes its device
+from `card_device`.  `launch` is the only code that calls a launching C
+entry point: it appends the device index and the device's current stream,
+raises on the CUDA error the entry point returns, and counts the launch in
+`LAUNCHES`, one `collections.Counter` keyed by kernel:
+
+  expand_rows, expand_rows_streamed     K1, K1' (one kernel, two callers)
+  keygen_project, keygen_count          K7, full and counts mode
+  decode_slots                          K8
+  blend_tiles, blend_flat, blend_strip  K2, K3, K4
+  compact_slabs, compact_runs           K5
+  compact_segments                      K6
+  radix_sort                            radix sorts (one entry-point call each)
+  radix_kernels                         the kernels those sorts ran, as the
+                                        entry point reports them
+  bitonic_first, bitonic_merge          the bitonic tier's shared-memory
+                                        passes (one first pass a sort)
+  bitonic_register, bitonic_wide        its global passes
+  bitonic_global_stages                 the stages its global passes ran
+
+"radix_kernels" and "bitonic_global_stages" count no launch of their own:
+the two sorts' wrappers add them after `launch`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -21,6 +48,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -101,6 +130,7 @@ SIGNATURES = {
 }
 
 _lib = None
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def find_nvcc() -> str | None:
@@ -190,8 +220,40 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def check_launch(err: int, name: str) -> None:
-    """Raise if the C entry point reported a CUDA error for its launch."""
-    if err != 0:
-        msg = load_library().vk3d_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+def cuda_error(err: int, name: str) -> RuntimeError:
+    """The error for CUDA error `err`, which the C entry point of `name`
+    reported."""
+    msg = load_library().vk3d_error_string(err).decode()
+    return RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def launch(name: str, entry: str, *args, device: torch.device) -> None:
+    """Call the C entry point `entry` with `args`, `device`'s index and its
+    current stream; raise if it reports a CUDA error, else count one launch
+    of `name`."""
+    err = getattr(load_library(), entry)(
+        *args, device.index, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise cuda_error(err, name)
+    LAUNCHES[name] += 1
+
+
+def on_card(*tensors) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors (run
+    the plain twin).  None entries are skipped; raises for any other device
+    or for tensors on more than one device."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"the tensors must be on one device, got {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cuda"
+
+
+def card_device(*tensors) -> torch.device:
+    """The one CUDA device of `tensors` (None entries skipped): what a
+    wrapper that only launches takes.  Raises otherwise."""
+    if not on_card(*tensors):
+        raise ValueError("unsupported device cpu: the kernel takes CUDA tensors")
+    return tensors[0].device

@@ -23,10 +23,11 @@ The columns are int64 tensors holding uint32 values (ops/keygen.py), each
 in [0, 2^32); the order is lexicographic on (tile, depth, index).  The
 inputs are not written; the outputs are new tensors.  Only CUDA tensors are
 taken: ops/bitonic.py runs the plain version for CPU tensors, so this
-module never falls back.  `LAUNCHES` counts sorts (calls that launched the
-network), `PASSES` the kernels those sorts launched, `GLOBAL_PASSES` and
-`GLOBAL_STAGES` their global passes and the stages those ran (13 and 66 a
-sort at 2^24).
+module never falls back.  `_build.LAUNCHES` counts each pass under its
+kernel as "bitonic_<kind>" (`KINDS`: one "bitonic_first" a sort; the
+"bitonic_register" and "bitonic_wide" global passes, 13 a sort at 2^24),
+and the stages the global passes ran as "bitonic_global_stages" (66 a sort
+at 2^24).
 """
 
 from __future__ import annotations
@@ -39,10 +40,6 @@ import torch
 from ...utils.timing import section
 from . import _build
 
-LAUNCHES = 0
-PASSES = 0
-GLOBAL_PASSES = 0
-GLOBAL_STAGES = 0
 # Elements a block sorts in shared memory (csrc/bitonic.cu's kLogBlock):
 # 2^13, 12 B each in 96 KB of dynamic shared memory, 256 threads holding 32
 # elements each, two blocks an SM in a merge.
@@ -104,6 +101,8 @@ def planned_passes(e: int, block: int = BLOCK, group: int = GROUP) -> int:
 KINDS = {"first": 0, "register": 1, "merge": 2, "wide": 3}
 SECTIONS = {"first": "bitonic_shared", "register": "bitonic_global", "wide": "bitonic_global",
             "merge": "bitonic_shared"}
+# The launch counter's key of each kind (`_build.LAUNCHES`).
+COUNTER_KEYS = {kind: f"bitonic_{kind}" for kind in KINDS}
 
 
 class Launch(NamedTuple):
@@ -140,35 +139,26 @@ def bitonic_sort(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor, t
     """Sort three [E] int64 CUDA columns (E a power of two) by (tile, depth,
     index); returns the sorted (tile, depth, index), new tensors.  `timer`
     (utils.timing.CudaPassTimer or None) gets a section a pass."""
-    global LAUNCHES, PASSES, GLOBAL_PASSES, GLOBAL_STAGES
     e = tile.shape[0]
     for name, x in (("tile", tile), ("depth", depth), ("index", index)):
         if x.dim() != 1 or x.dtype != torch.int64 or x.shape[0] != e:
             raise ValueError(f"{name} must be [{e}] int64, got {tuple(x.shape)} {x.dtype}")
-        if x.device != tile.device:
-            raise ValueError("tile, depth and index must be on one device")
     if e & (e - 1):
         raise ValueError(f"bitonic sort requires a power-of-two length, got {e}")
-    if tile.device.type != "cuda":
-        raise ValueError(f"unsupported device {tile.device}")
+    dev = _build.card_device(tile, depth, index)
     cols = [x.contiguous() for x in (tile, depth, index)]
     out = [torch.empty_like(x) for x in cols]
     if e == 0:
         return tuple(out)
-    dev = tile.device
     keys = torch.empty(e, dtype=torch.int64, device=dev) if e > BLOCK else None
     idx = torch.empty(e, dtype=torch.int32, device=dev) if e > BLOCK else None
-    run_pass = _build.load_library().vk3d_bitonic_pass
     args = (*(x.data_ptr() for x in cols), e, None if keys is None else keys.data_ptr(),
             None if idx is None else idx.data_ptr(), *(x.data_ptr() for x in out))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for p in launches(e):
+    passes = launches(e)
+    for p in passes:
         with section(timer, SECTIONS[p.kind]):
-            err = run_pass(KINDS[p.kind], *args, p.k, p.lo_bit, p.group, dev.index, stream)
-        _build.check_launch(err, f"bitonic_sort ({p.kind} pass, k {p.k})")
-        PASSES += 1
-        if SECTIONS[p.kind] == "bitonic_global":
-            GLOBAL_PASSES += 1
-            GLOBAL_STAGES += p.group
-    LAUNCHES += 1
+            _build.launch(COUNTER_KEYS[p.kind], "vk3d_bitonic_pass", KINDS[p.kind], *args, p.k,
+                          p.lo_bit, p.group, device=dev)
+    _build.LAUNCHES["bitonic_global_stages"] += sum(
+        p.group for p in passes if SECTIONS[p.kind] == "bitonic_global")
     return tuple(out)

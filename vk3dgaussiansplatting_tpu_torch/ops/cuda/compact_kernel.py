@@ -17,9 +17,8 @@ Lanes no tile writes hold 0 in `compact_runs` here; on the TPU they hold
 whatever the output buffer held, and callers mask them either way.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
-version for CPU tensors; it never falls back from one to the other.
-`SLABS_LAUNCHES`, `RUNS_LAUNCHES` and `SEGMENTS_LAUNCHES` count kernel
-launches.
+version for CPU tensors (`_build.on_card`); it never falls back from one to
+the other.  `_build.LAUNCHES` counts the launches under the wrappers' names.
 """
 
 from __future__ import annotations
@@ -30,9 +29,6 @@ from ...core.config import SENTINEL
 from . import _build, expand_kernel
 
 CHUNK = 128
-SLABS_LAUNCHES = 0
-RUNS_LAUNCHES = 0
-SEGMENTS_LAUNCHES = 0
 
 
 def _check_src(src: torch.Tensor, ep: int) -> None:
@@ -42,13 +38,11 @@ def _check_src(src: torch.Tensor, ep: int) -> None:
         raise ValueError(f"ep must be a non-negative multiple of {CHUNK}, got {ep}")
 
 
-def _check_table(name: str, x: torch.Tensor, src: torch.Tensor, n: int | None = None) -> None:
+def _check_table(name: str, x: torch.Tensor, n: int | None = None) -> None:
     if x.dim() != 1 or x.dtype != torch.int64:
         raise ValueError(f"{name} must be 1-D int64, got {tuple(x.shape)} {x.dtype}")
     if n is not None and x.shape[0] != n:
         raise ValueError(f"{name} must have {n} entries, got {x.shape[0]}")
-    if x.device != src.device:
-        raise ValueError(f"{name} and src must be on one device")
 
 
 def _padded(src: torch.Tensor, pad: int) -> torch.Tensor:
@@ -90,25 +84,20 @@ def compact_runs(src, starts, sbases, ep: int, wmax: int) -> torch.Tensor:
         multiple of 128.
 
     Returns [ep] int64."""
-    global RUNS_LAUNCHES
+    on_card = _build.on_card(src, starts, sbases)
     _check_src(src, ep)
-    _check_table("starts", starts, src)
-    _check_table("sbases", sbases, src, starts.shape[0])
+    _check_table("starts", starts)
+    _check_table("sbases", sbases, starts.shape[0])
     if wmax <= 0 or wmax % CHUNK:
         raise ValueError(f"wmax must be a positive multiple of {CHUNK}, got {wmax}")
-    if src.device.type == "cpu":
+    if not on_card:
         return compact_runs_plain(src, starts, sbases, ep, wmax)
-    if src.device.type != "cuda":
-        raise ValueError(f"unsupported device {src.device}")
     astarts, sb = _runs_offsets(src, starts, sbases, ep, wmax)
     src = src.contiguous()
     out = torch.empty(ep, dtype=torch.int64, device=src.device)
-    err = _build.load_library().vk3d_compact_runs(
-        src.data_ptr(), src.shape[0], astarts.data_ptr(), sb.data_ptr(), sb.shape[0], ep, wmax,
-        out.data_ptr(), src.device.index, torch.cuda.current_stream(src.device).cuda_stream,
-    )
-    _build.check_launch(err, "compact_runs")
-    RUNS_LAUNCHES += 1
+    _build.launch("compact_runs", "vk3d_compact_runs", src.data_ptr(), src.shape[0],
+                  astarts.data_ptr(), sb.data_ptr(), sb.shape[0], ep, wmax, out.data_ptr(),
+                  device=src.device)
     return out
 
 
@@ -149,28 +138,22 @@ def compact_slabs(src, starts, sbase, slabw, off, counts, ep: int) -> torch.Tens
       ep: packed capacity, a multiple of 128.
 
     Returns [ep] int64."""
-    global SLABS_LAUNCHES
+    on_card = _build.on_card(src, starts, sbase, slabw, off, counts)
     _check_src(src, ep)
     for name, x in (("starts", starts), ("sbase", sbase), ("slabw", slabw), ("off", off),
                     ("counts", counts)):
-        _check_table(name, x, src, starts.shape[0])
-    if src.device.type == "cpu":
+        _check_table(name, x, starts.shape[0])
+    if not on_card:
         return compact_slabs_plain(src, starts, sbase, slabw, off, counts, ep)
-    if src.device.type != "cuda":
-        raise ValueError(f"unsupported device {src.device}")
     # The kernel clips the aligned starts itself and reads `starts` with its
     # stride (the capped layout passes a column of the ranges): the launch
     # is the wrapper's one device operation besides the output's allocation.
     tables = [x.contiguous() for x in (sbase, slabw, off, counts)]
     src = src.contiguous()
     out = torch.empty(ep, dtype=torch.int64, device=src.device)
-    err = _build.load_library().vk3d_compact_slabs(
-        src.data_ptr(), src.shape[0], starts.data_ptr(), starts.stride(0),
-        *(x.data_ptr() for x in tables), starts.shape[0], ep, out.data_ptr(), src.device.index,
-        torch.cuda.current_stream(src.device).cuda_stream,
-    )
-    _build.check_launch(err, "compact_slabs")
-    SLABS_LAUNCHES += 1
+    _build.launch("compact_slabs", "vk3d_compact_slabs", src.data_ptr(), src.shape[0],
+                  starts.data_ptr(), starts.stride(0), *(x.data_ptr() for x in tables),
+                  starts.shape[0], ep, out.data_ptr(), device=src.device)
     return out
 
 
@@ -193,20 +176,14 @@ def compact_segments(src, src0, ep: int) -> torch.Tensor:
     src: [E] int64; src0: [ep // 128] int64 first source slot of each packed
     chunk (clipped in bounds here); ep: a multiple of 128.  Returns [ep]
     int64."""
-    global SEGMENTS_LAUNCHES
+    on_card = _build.on_card(src, src0)
     _check_src(src, ep)
-    _check_table("src0", src0, src, ep // CHUNK)
-    if src.device.type == "cpu":
+    _check_table("src0", src0, ep // CHUNK)
+    if not on_card:
         return compact_segments_plain(src, src0, ep)
-    if src.device.type != "cuda":
-        raise ValueError(f"unsupported device {src.device}")
     s0 = _segment_starts(src, src0)
     src = src.contiguous()
     out = torch.empty(ep, dtype=torch.int64, device=src.device)
-    err = _build.load_library().vk3d_compact_segments(
-        src.data_ptr(), src.shape[0], s0.data_ptr(), ep, out.data_ptr(), src.device.index,
-        torch.cuda.current_stream(src.device).cuda_stream,
-    )
-    _build.check_launch(err, "compact_segments")
-    SEGMENTS_LAUNCHES += 1
+    _build.launch("compact_segments", "vk3d_compact_segments", src.data_ptr(), src.shape[0],
+                  s0.data_ptr(), ep, out.data_ptr(), device=src.device)
     return out

@@ -13,8 +13,9 @@ where the TPU functions take the counts: keygen passes the scan K7 wrote
 (`Projection.cum`), and another caller scans with `torch.cumsum`.
 
 Each wrapper launches the CUDA kernel for CUDA tensors and runs
-`expand_rows_plain` for CPU tensors; it never falls back from one to the
-other.  `LAUNCHES` and `STREAMED_LAUNCHES` count kernel launches.
+`expand_rows_plain` for CPU tensors (`_build.on_card`); it never falls back
+from one to the other.  `_build.LAUNCHES` counts K1's launches as
+"expand_rows" and K1''s as "expand_rows_streamed".
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ import torch
 
 from . import _build
 
-LAUNCHES = 0
-STREAMED_LAUNCHES = 0
 MAX_COLS = 7
 # Merged items (row ends and slots) per block of csrc/expand.cu (kItems).
 ITEMS_PER_BLOCK = 512
@@ -38,8 +37,6 @@ def _check(cols: torch.Tensor, cum: torch.Tensor) -> None:
     if cum.dtype != torch.int64 or cum.dim() != 1 or cum.shape[0] != cols.shape[1]:
         raise ValueError(f"cum must be [{cols.shape[1]}] int64 matching cols, got "
                          f"{tuple(cum.shape)} {cum.dtype}")
-    if cum.device != cols.device:
-        raise ValueError("cols and cum must be on one device")
 
 
 def expand_rows_plain(cols: torch.Tensor, cum: torch.Tensor, capacity: int):
@@ -57,28 +54,16 @@ def expand_rows_plain(cols: torch.Tensor, cum: torch.Tensor, capacity: int):
     return out, total
 
 
-def _launch(cols: torch.Tensor, cum: torch.Tensor, capacity: int):
-    if cols.device.type != "cuda":
-        raise ValueError(f"unsupported device {cols.device}")
+def _launch(name: str, cols: torch.Tensor, cum: torch.Tensor, capacity: int):
+    dev = _build.card_device(cols, cum)
+    _check(cols, cum)
     cols, cum = cols.contiguous(), cum.contiguous()
-    total = cum[-1] if cum.numel() else torch.zeros((), dtype=torch.int64, device=cols.device)
-    out = torch.empty((cols.shape[0], capacity), dtype=torch.int32, device=cols.device)
+    total = cum[-1] if cum.numel() else torch.zeros((), dtype=torch.int64, device=dev)
+    out = torch.empty((cols.shape[0], capacity), dtype=torch.int32, device=dev)
     nblocks = -(-(cols.shape[1] + capacity) // ITEMS_PER_BLOCK)
-    part = torch.empty(nblocks + 1, dtype=torch.int64, device=cols.device)
-    lib = _build.load_library()
-    err = lib.vk3d_expand_rows(
-        cols.data_ptr(),
-        cols.shape[0],
-        cum.data_ptr(),
-        cols.shape[1],
-        capacity,
-        part.data_ptr(),
-        nblocks,
-        out.data_ptr(),
-        cols.device.index,
-        torch.cuda.current_stream(cols.device).cuda_stream,
-    )
-    _build.check_launch(err, "expand_rows")
+    part = torch.empty(nblocks + 1, dtype=torch.int64, device=dev)
+    _build.launch(name, "vk3d_expand_rows", cols.data_ptr(), cols.shape[0], cum.data_ptr(),
+                  cols.shape[1], capacity, part.data_ptr(), nblocks, out.data_ptr(), device=dev)
     return out, total
 
 
@@ -96,22 +81,14 @@ def expand_rows(cols: torch.Tensor, cum: torch.Tensor, capacity: int):
     Returns (out, total): [C, E] int32 with out[:, j] the row covering slot j
     (zeros past min(total, E)), and the [] int64 unclamped total.
     """
-    global LAUNCHES
-    _check(cols, cum)
-    if cols.device.type == "cpu":
-        return expand_rows_plain(cols, cum, capacity)
-    result = _launch(cols, cum, capacity)
-    LAUNCHES += 1
-    return result
+    if _build.on_card(cols, cum):
+        return _launch("expand_rows", cols, cum, capacity)
+    return expand_rows_plain(cols, cum, capacity)
 
 
 def expand_rows_streamed(cols: torch.Tensor, cum: torch.Tensor, capacity: int):
     """K1', keygen's expansion under the depth prefilter: `expand_rows`'s
-    arguments and result, counted in `STREAMED_LAUNCHES`."""
-    global STREAMED_LAUNCHES
-    _check(cols, cum)
-    if cols.device.type == "cpu":
-        return expand_rows_plain(cols, cum, capacity)
-    result = _launch(cols, cum, capacity)
-    STREAMED_LAUNCHES += 1
-    return result
+    arguments and result, counted as "expand_rows_streamed"."""
+    if _build.on_card(cols, cum):
+        return _launch("expand_rows_streamed", cols, cum, capacity)
+    return expand_rows_plain(cols, cum, capacity)

@@ -9,18 +9,19 @@ covariance, the prefilter's keep mask and the scan of the counts), and the
 per-slot decode that turns the expansion's columns into the sort elements.
 
 `project_gaussians` launches K7 for CUDA tensors and runs
-`project_gaussians_plain` for CPU tensors; `decode_slots` launches K8 or
-runs `decode_slots_plain` the same way.  Neither falls back from one to the
-other: a failed build, launch or shared-memory opt-in raises, and the
-launchers raise `ValueError` for a tensor that is not on a CUDA device.
+`project_gaussians_plain` for CPU tensors (`_build.on_card`);
+`decode_slots` launches K8 or runs `decode_slots_plain` the same way.
+Neither falls back from one to the other: a failed build, launch or
+shared-memory opt-in raises, and the launchers raise `ValueError` for a
+tensor that is not on a CUDA device.
 The plain versions are the torch code that writes XLA's float32 arithmetic
 out op by op (`render/project.py`) and scans with `torch.cumsum`; K7
 computes the same expressions with the same rounding (csrc/keygen.cu,
 "Arithmetic") and the scan by decoupled look-back in the same launch, so a
 card keygen pass is K7, K1's partition search and expansion, and K8, with
-no PyTorch kernel between them.  `LAUNCHES` counts K7's full launches,
-`COUNT_LAUNCHES` its counts-only launches (`count_live_elements`),
-`DECODE_LAUNCHES` K8's.
+no PyTorch kernel between them.  `_build.LAUNCHES` counts K7's full
+launches as "keygen_project", its counts-only launches
+(`count_live_elements`) as "keygen_count" and K8's as "decode_slots".
 """
 
 from __future__ import annotations
@@ -36,9 +37,6 @@ from ...render import project
 from .. import prefilter
 from . import _build
 
-LAUNCHES = 0
-COUNT_LAUNCHES = 0
-DECODE_LAUNCHES = 0
 NUM_COLS = 6  # id, offset, max(w, 1), min_x, min_y, depth bits
 F32 = np.float32
 
@@ -108,14 +106,10 @@ def _check(table, thr_dilated, config: RenderConfig) -> None:
         if t.dtype != torch.float32 or tuple(t.shape) != (n, *tail):
             raise ValueError(f"table.{name} must be [N{''.join(f', {d}' for d in tail)}] "
                              f"float32, got {tuple(t.shape)} {t.dtype}")
-        if t.device != table.position.device:
-            raise ValueError("the table's tensors must be on one device")
     if thr_dilated is not None:
         if thr_dilated.dtype != torch.int64 or tuple(thr_dilated.shape) != (config.num_tiles,):
             raise ValueError(f"thresholds must be [{config.num_tiles}] int64, got "
                              f"{tuple(thr_dilated.shape)} {thr_dilated.dtype}")
-        if thr_dilated.device != table.position.device:
-            raise ValueError("thresholds and table must be on one device")
     if config.sh_mode not in tuple(SphericalHarmonicsMode):
         raise ValueError(f"unknown SH mode {config.sh_mode}")
 
@@ -241,15 +235,17 @@ def _outputs(n: int, dev: torch.device, scratch_words: int | None, with_aux: boo
     return out, scratch
 
 
+def _tensors(table, thr_dilated) -> tuple:
+    """The table's tensors and the thresholds (or None): what K7 reads."""
+    return (*(getattr(table, name) for name in _TABLE_SHAPES), thr_dilated)
+
+
 def _launch_project(table, view, proj, cam_pos, config: RenderConfig, capacity=None,
                     thr_dilated=None, *, with_aux=False) -> Projection:
-    dev = table.position.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    dev = _build.card_device(*_tensors(table, thr_dilated))
     _check(table, thr_dilated, config)
     n = table.position.shape[0]
-    lib = _build.load_library()
-    words = lib.vk3d_keygen_scratch_words(n, config.num_tiles)
+    words = _build.load_library().vk3d_keygen_scratch_words(n, config.num_tiles)
     if words < 0:
         raise ValueError(f"{n} gaussians x {config.num_tiles} tiles: past K7's limits (ids in "
                          f"int32, count sums in the look-back's 62-bit status words)")
@@ -262,16 +258,15 @@ def _launch_project(table, view, proj, cam_pos, config: RenderConfig, capacity=N
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib.vk3d_keygen_project(
+    _build.launch(
+        "keygen_count" if capacity is None else "keygen_project", "vk3d_keygen_project",
         position.data_ptr(), scale.data_ptr(), rot.data_ptr(), opacity.data_ptr(),
         sh.data_ptr(), n, ctypes.addressof(params), ptr(thr),
         out.total.data_ptr(), ptr(out.extents), ptr(out.flags), ptr(out.cols),
         -1 if capacity is None else capacity, ptr(out.cum), ptr(out.color_alpha),
         ptr(out.cov2d), ptr(out.cov_inv), ptr(out.screen_pos), ptr(scratch),
-        0 if scratch is None else scratch.numel(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        0 if scratch is None else scratch.numel(), device=dev,
     )
-    _build.check_launch(err, "keygen_project")
     return out
 
 
@@ -291,30 +286,24 @@ def project_gaussians(table, view, proj, cam_pos, config: RenderConfig, capacity
         cull.
       with_aux: also return the extents and the visible / keep flags.
 
-    Returns a `Projection`.  CUDA tensors launch K7 (`LAUNCHES`, or
-    `COUNT_LAUNCHES` in the counts mode); CPU tensors run
+    Returns a `Projection`.  CUDA tensors launch K7 (counted as
+    "keygen_project", or "keygen_count" in the counts mode); CPU tensors run
     `project_gaussians_plain`.
     """
-    global LAUNCHES, COUNT_LAUNCHES
-    if table.position.device.type == "cpu":
-        _check(table, thr_dilated, config)
-        return project_gaussians_plain(table, view, proj, cam_pos, config, capacity, thr_dilated,
-                                       with_aux=with_aux)
-    out = _launch_project(table, view, proj, cam_pos, config, capacity, thr_dilated,
-                          with_aux=with_aux)
-    if capacity is None:
-        COUNT_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    return out
+    if _build.on_card(*_tensors(table, thr_dilated)):
+        return _launch_project(table, view, proj, cam_pos, config, capacity, thr_dilated,
+                               with_aux=with_aux)
+    _check(table, thr_dilated, config)
+    return project_gaussians_plain(table, view, proj, cam_pos, config, capacity, thr_dilated,
+                                   with_aux=with_aux)
 
 
 def _check_decode(cols: torch.Tensor, total: torch.Tensor) -> None:
     if cols.dim() != 2 or cols.shape[0] != NUM_COLS or cols.dtype != torch.int32:
         raise ValueError(f"cols must be [{NUM_COLS}, E] int32, got {tuple(cols.shape)} "
                          f"{cols.dtype}")
-    if total.dim() != 0 or total.dtype != torch.int64 or total.device != cols.device:
-        raise ValueError("total must be a [] int64 tensor on the columns' device")
+    if total.dim() != 0 or total.dtype != torch.int64:
+        raise ValueError("total must be a [] int64 tensor")
 
 
 def decode_slots_plain(cols: torch.Tensor, total: torch.Tensor, grid_width: int):
@@ -338,34 +327,26 @@ def decode_slots_plain(cols: torch.Tensor, total: torch.Tensor, grid_width: int)
 
 
 def _launch_decode(cols: torch.Tensor, total: torch.Tensor, grid_width: int):
-    if cols.device.type != "cuda":
-        raise ValueError(f"unsupported device {cols.device}")
+    dev = _build.card_device(cols, total)
     _check_decode(cols, total)
     cols = cols.contiguous()
     e = cols.shape[1]
-    tile, depth, index = (torch.empty(e, dtype=torch.int64, device=cols.device) for _ in range(3))
-    count = torch.empty((), dtype=torch.int64, device=cols.device)
-    lib = _build.load_library()
-    err = lib.vk3d_decode_slots(
-        cols.data_ptr(), e, total.data_ptr(), grid_width, tile.data_ptr(), depth.data_ptr(),
-        index.data_ptr(), count.data_ptr(), cols.device.index,
-        torch.cuda.current_stream(cols.device).cuda_stream,
-    )
-    _build.check_launch(err, "decode_slots")
+    tile, depth, index = (torch.empty(e, dtype=torch.int64, device=dev) for _ in range(3))
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    _build.launch("decode_slots", "vk3d_decode_slots", cols.data_ptr(), e, total.data_ptr(),
+                  grid_width, tile.data_ptr(), depth.data_ptr(), index.data_ptr(),
+                  count.data_ptr(), device=dev)
     return tile, depth, index, count
 
 
 def decode_slots(cols: torch.Tensor, total: torch.Tensor, grid_width: int):
     """The sort elements from the expansion (K8): `decode_slots_plain`'s
-    arguments and result.  CUDA tensors launch K8 (`DECODE_LAUNCHES`), CPU
-    tensors run the plain version."""
-    global DECODE_LAUNCHES
-    if cols.device.type == "cpu":
-        _check_decode(cols, total)
-        return decode_slots_plain(cols, total, grid_width)
-    result = _launch_decode(cols, total, grid_width)
-    DECODE_LAUNCHES += 1
-    return result
+    arguments and result.  CUDA tensors launch K8 (counted as
+    "decode_slots"), CPU tensors run the plain version."""
+    if _build.on_card(cols, total):
+        return _launch_decode(cols, total, grid_width)
+    _check_decode(cols, total)
+    return decode_slots_plain(cols, total, grid_width)
 
 
 FLOAT_FIELDS = ("color_alpha", "cov2d", "cov_inv", "screen_pos")

@@ -24,20 +24,20 @@ them is not a SENTINEL triple, in which case every slot is sorted
 and the scratch are new tensors.  Lists of 2^30 slots or more are refused:
 a look-back status word holds a count in 30 bits beside its 2-bit flag.
 Only contiguous CUDA tensors are taken: ops/sort.py runs the plain version
-for CPU tensors, so this module never falls back.  `LAUNCHES` counts sorts,
-`PASSES` the kernels they launched.
+for CPU tensors, so this module never falls back.  `_build.LAUNCHES`
+counts sorts as "radix_sort" and the kernels they launched as
+"radix_kernels".
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
-LAUNCHES = 0
-PASSES = 0
 # Copies of csrc/radix.cu's constants (`check_kernel_config` holds them to
 # the library's): a scatter block is 16 warps, each 16 rounds (ITEMS) of 32
 # slots, TILE slots a partition; 8-bit digits; at most 8 passes; the
@@ -52,7 +52,6 @@ HEADER_WORDS = 16 + MAX_PASSES * BINS
 STATUS_COUNT_BITS = 30
 MAX_SLOTS = 1 << STATUS_COUNT_BITS
 DEPTH_BITS = 32
-_config_checked = False
 
 
 def kernel_config() -> dict:
@@ -72,9 +71,11 @@ def python_config() -> dict:
             "status_count_bits": STATUS_COUNT_BITS}
 
 
+@functools.cache
 def check_kernel_config() -> dict:
     """Raise unless the library's constants equal the module's copies (the
-    plain version's destinations and `scratch_words` depend on them)."""
+    plain version's destinations and `scratch_words` depend on them).  Once
+    a process: a match is kept."""
     got, want = kernel_config(), python_config()
     if got != want:
         raise RuntimeError(f"csrc/radix.cu's constants {got} differ from radix_kernel's {want}")
@@ -88,7 +89,7 @@ def resident_blocks(device: int | None = None) -> int:
     index = torch.cuda.current_device() if device is None else device
     blocks = _build.load_library().vk3d_radix_resident_blocks(index)
     if blocks < 0:
-        _build.check_launch(-blocks, "radix scatter occupancy")
+        raise _build.cuda_error(-blocks, "radix scatter occupancy")
     return blocks
 
 
@@ -128,7 +129,6 @@ def radix_sort(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor,
     stably, over the prefix `count` bounds (None: every slot); returns the
     sorted (tile, depth, index), new tensors, and with `with_perm` the
     [E] int64 slot permutation too."""
-    global LAUNCHES, PASSES, _config_checked
     if not 0 < num_tiles < 2**31:
         raise ValueError(f"num_tiles {num_tiles} does not fit the sort key")
     e = tile.shape[0]
@@ -138,32 +138,22 @@ def radix_sort(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor,
     for name, x in (("tile", tile), ("depth", depth), ("index", index)):
         if x.dim() != 1 or x.dtype != torch.int64 or x.shape[0] != e:
             raise ValueError(f"{name} must be [{e}] int64, got {tuple(x.shape)} {x.dtype}")
-        if x.device != tile.device:
-            raise ValueError("tile, depth and index must be on one device")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if count is not None and (count.dim() != 0 or count.dtype != torch.int64
-                              or count.device != tile.device):
-        raise ValueError(f"count must be a [] int64 on {tile.device}, got "
-                         f"{tuple(count.shape)} {count.dtype} on {count.device}")
-    if tile.device.type != "cuda":
-        raise ValueError(f"unsupported device {tile.device}")
+    if count is not None and (count.dim() != 0 or count.dtype != torch.int64):
+        raise ValueError(f"count must be a [] int64, got {tuple(count.shape)} {count.dtype}")
+    dev = _build.card_device(tile, depth, index, count)
     out = [torch.empty_like(tile) for _ in range(3)]
     perm = torch.empty_like(tile) if with_perm else None
     if e:
-        if not _config_checked:
-            check_kernel_config()
-            _config_checked = True
-        dev = tile.device
+        check_kernel_config()
         scratch = torch.empty(scratch_words(e, num_tiles), dtype=torch.int32, device=dev)
         launched = ctypes.c_int64(0)
-        err = _build.load_library().vk3d_radix_sort(
-            tile.data_ptr(), depth.data_ptr(), index.data_ptr(),
+        _build.launch(
+            "radix_sort", "vk3d_radix_sort", tile.data_ptr(), depth.data_ptr(), index.data_ptr(),
             None if count is None else count.data_ptr(), e, num_tiles, scratch.data_ptr(),
             *(x.data_ptr() for x in out), None if perm is None else perm.data_ptr(),
-            ctypes.byref(launched), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.byref(launched), device=dev,
         )
-        _build.check_launch(err, "radix_sort")
-        LAUNCHES += 1
-        PASSES += launched.value
+        _build.LAUNCHES["radix_kernels"] += launched.value
     return (*out, perm) if with_perm else tuple(out)

@@ -39,7 +39,7 @@ import torch
 
 from ..core.config import SENTINEL, RenderConfig, SortAlgorithm
 from . import bitonic
-from .cuda import radix_kernel
+from .cuda import _build, radix_kernel
 from .keygen import SortElements
 
 # Rounds whose lanes the plain version compares in one step ([rounds, 32, 32]).
@@ -138,7 +138,7 @@ def sort_elements_xla(elements: SortElements, num_tiles: int, *, with_perm: bool
     slot permutation."""
     if not 0 < num_tiles < 2**31:
         raise ValueError(f"num_tiles {num_tiles} does not fit the sort key")
-    if elements.tile.device.type == "cpu":
+    if not _build.on_card(*elements):
         return sort_elements_radix_plain(elements, num_tiles, with_perm=with_perm)
     out = radix_kernel.radix_sort(*(x.contiguous() for x in elements[:3]), elements.count,
                                   num_tiles, with_perm=with_perm)

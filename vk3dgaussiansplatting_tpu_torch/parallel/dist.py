@@ -19,7 +19,7 @@ One frame, per rank:
      per-strip windows of `strip_capacity` slots (`dropped` counts tails past
      them);
   5. the systolic blend: in phase s rank d blends strip (d - s) % world with
-     K4 (ops/cuda/blend_kernel.py:blend_strip) from the (colour, log T)
+     K4 (ops/blend.py:blend_strip) from the (colour, log T)
      carry, then sends the result to rank d + 1; after the last phase rank d
      holds strip d.
 
@@ -49,7 +49,6 @@ from ..ops import blend as blend_ops
 from ..ops import keygen as keygen_ops
 from ..ops import ranges as ranges_ops
 from ..ops import sort as sort_ops
-from ..ops.cuda import blend_kernel
 from ..utils.timing import read_back, section
 
 _DEPTH_SAMPLE = 512  # per-rank depth-quantile sample size
@@ -239,7 +238,7 @@ def make_distributed_render(
 
         thr = _depth_band_thresholds(elements.depth, comm, timer)
         with section(timer, "bucket"):
-            table_rows = blend_kernel.pack_feature_table(frame_data)
+            table_rows = blend_ops.pack_feature_table(frame_data)
             band = torch.searchsorted(thr, elements.depth, right=True)
             owner = torch.div(elements.tile, tiles_per_dev, rounding_mode="floor")
             dest = torch.where(live, (owner + band) % ndev, ndev)
@@ -294,7 +293,7 @@ def make_distributed_render(
             s0 = s0_host[g]
             with section(timer, "blend"):
                 rng_s = torch.clamp(ranges[tile_base : tile_base + tiles_per_dev] - s0, 0, strip_cap)
-                colors, logt = blend_kernel.blend_strip(
+                colors, logt = blend_ops.blend_strip(
                     table_rows[s0 : s0 + strip_cap] if route_features else table_rows,
                     si[s0 : s0 + strip_cap],
                     rng_s,

@@ -33,7 +33,6 @@ from .ops import capped as capped_ops
 from .ops import keygen as keygen_ops
 from .ops import ranges as ranges_ops
 from .ops import sort as sort_ops
-from .ops.cuda import blend_kernel
 from .utils.timing import count, read_back, section
 
 
@@ -89,7 +88,7 @@ def render_frame(
         if config.blend_depth_cap > 0:
             image = capped_ops.blend_tiles_capped(elements, ranges, frame, config, timer=timer)
         else:
-            image = blend_kernel.blend_tiles(elements, ranges, frame, config)
+            image = blend_ops.blend_tiles(elements, ranges, frame, config)
     with section(timer, "quantize"):
         image_u8 = blend_ops.quantize_image(image)
     return FrameOutputs(
