@@ -7,11 +7,13 @@ strided blocks (`wide_slots`) cover each slot once and hold each of the
 pass's pairs inside one thread's row or one block (at the block's top
 bits), one direction a row or block; at the kernel's block a wide
 block's runs are 2^(13-g) consecutive slots and its layouts those of a
-merge's first half; every shared-pass layout (`layout_slots`) is a
-permutation of the block that holds each of its stages' pairs inside one
-row, and its swizzled warp accesses
-hit 32 distinct banks; partial groups; E < B, E = B and E = 2B; lists all
-SENTINEL or half SENTINEL; the wrapper's guards.  The numpy model of the
+merge's first half; the first pass's one loop walks the schedule's
+stages in order (its packed table); every shared-pass layout
+(`layout_slots`) is a permutation of the block that holds each of its
+stages' pairs inside one row, the re-map's Gray-code walk finds its
+swizzled words, and its warp accesses hit 32 distinct banks; partial
+groups; E < B, E = B and E = 2B; lists all SENTINEL or half SENTINEL; the
+wrapper's guards.  The numpy model of the
 passes (`_run_schedule`, tests/test_torch_bitonic.py) equals the plain
 version and the stable tier bit for bit.  On the card (`cuda` marker): the
 kernel at E = 1 .. 2^12 and at every E = 2^13 .. 2^24 against the stable
@@ -69,6 +71,32 @@ def _layouts_of_bits(bits, block):
     return seq + [top] if b != top else seq
 
 
+def _first_walk(block):
+    """The first pass's stages (log2 k, block-slot bit) as csrc/bitonic.cu's
+    one loop walks them: `kFirstStages` (first_stages: log2 k = 1 ..
+    log2 block, the bit log2 k - 1 .. 0 for each, packed as lk << 4 | x),
+    entry by entry, unpacked as the loop unpacks it."""
+    packed = [lk << 4 | x for lk in range(1, block.bit_length())
+              for x in range(lk - 1, -1, -1)]
+    assert all(v < 256 for v in packed)  # one uint8 each
+    return [(v >> 4, v & 15) for v in packed]
+
+
+def _gray_words(block, b):
+    """[threads, 32]: the shared-memory word of each thread's register u in
+    layout b as relayout's for_each_word walks them: u in Gray-code order,
+    each word the last one XOR swizzle(1 << (b + i)) for the bit i that
+    changed, from swizzle(layout_base(t, b))."""
+    t = torch.arange(block >> PER_THREAD_LOG, dtype=torch.int64)
+    q = swizzle(((t >> b) << (b + PER_THREAD_LOG)) | (t & ((1 << b) - 1)))
+    words = torch.empty(t.shape[0], 1 << PER_THREAD_LOG, dtype=torch.int64)
+    for g in range(1 << PER_THREAD_LOG):
+        if g:
+            q = q ^ swizzle(1 << (b + (g & -g).bit_length() - 1))
+        words[:, g ^ (g >> 1)] = q
+    return words
+
+
 def test_global_groups_cover_slots_and_hold_pairs():
     """A register pass's groups (`slot_groups`, up to five distances) and a
     wide pass's blocks (`wide_slots`, any group) partition the slots; both
@@ -118,7 +146,14 @@ def test_shared_layouts_hold_pairs_without_bank_conflicts(block):
     assert (first[0], merge[0]) == ("first", "merge")
     # A merge runs in layouts top, top - 5, 0 and stores from top again.
     assert _layouts(merge[1], block) == [top, top - 5, 0, top]
-    used = set(_layouts(first[1], block))
+    # The first pass's table walks the schedule's stages in its order; at
+    # B, 91 stages and 23 re-maps.
+    walk = _first_walk(block)
+    assert walk == [(k.bit_length() - 1, j.bit_length() - 1) for k, j in first[1]]
+    seq = _layouts_of_bits([x for _lk, x in walk], block)
+    if block == B:
+        assert (len(walk), len(seq) - 1) == (91, 23)
+    used = set(seq)
     assert used == {top, top - 5, 0}
     lane = torch.arange(32)
     for b in used:
@@ -128,6 +163,7 @@ def test_shared_layouts_hold_pairs_without_bank_conflicts(block):
             partner = slots[:, torch.arange(32) ^ (1 << (x - b))]
             assert torch.equal(slots ^ (1 << x), partner), (b, x)
         words = swizzle(slots)
+        assert torch.equal(_gray_words(block, b), words), f"the Gray walk in layout {b}"
         assert torch.equal(torch.sort(words.reshape(-1)).values, torch.arange(block))
         banks = (words % 32).reshape(-1, 32, 32).transpose(1, 2)  # [warp, register, lane]
         assert torch.equal(torch.sort(banks, dim=-1).values,

@@ -36,13 +36,18 @@
 // 12 B a slot, XOR-swizzled so that no layout's warp access has a bank
 // conflict) when a stage's distance leaves the layout: a merge runs in
 // layouts 8, 3 and 0, a wide pass in 8 and, past five distances, 3; each then
-// re-maps to layout 8, whose loads and stores are coalesced.  A merge fits
-// 128 registers a thread, so two blocks share an SM and one's loads and
-// stores overlap the other's stages; the first pass, whose loop carries more,
-// takes up to 255 and runs alone.  B = 2^14 (512 threads, one block an SM)
-// led while a block ran alone on its SM, and lost once the 2^13 merges ran
-// two to an SM; its first pass spilled at the 128 registers 512 threads leave
-// a thread.
+// re-maps to layout 8, whose loads and stores are coalesced.  A re-map walks
+// a thread's words in Gray-code order, one XOR a register.
+//
+// The first pass and the merges fit 128 registers a thread, so two blocks
+// share an SM and one's stages overlap the other's re-maps, loads and
+// stores.  The first pass runs its 91 stages (23 re-maps) in one loop over
+// a table of them, which carries one counter as a merge's loop carries one
+// distance: 126 registers, no spill, two blocks an SM, 0.905 ms at 2^24 on
+// an H100 (1.216 at one block an SM; PERF.md).  A loop over k and the
+// distance spilled at 128.  B = 2^14 (512 threads, one block an SM) led
+// while a block ran alone on its SM, and lost once the 2^13 merges ran two
+// to an SM.
 //
 // The wide pass spilled at 128 registers (its 32 addresses have a stride
 // known only at run time) and cost 0.18-0.22 ms a pass at 2^24 on an H100,
@@ -70,8 +75,8 @@
 // element (three int64 columns in, three out); the network's own floor is
 // its passes x 24 B an element, which the fused global passes cut from the
 // reference schedule's 105 passes to 25 at E = 2^24.  The shared passes run
-// below the memory rate: their compare-exchanges are integer work, and a
-// block's loads, stages and stores take turns.
+// below the memory rate: a compare-exchange is 14 integer instructions, and
+// a re-map moves 24 B a slot through shared memory.
 
 #include <atomic>
 #include <cstdint>
@@ -194,6 +199,28 @@ __device__ __forceinline__ int layout_for(int x) {
 // 0..L-1 and L+5..9), which the XOR maps to 32 distinct banks.
 __device__ __forceinline__ uint32_t swizzle(uint32_t p) { return p ^ ((p >> 5) & 31u); }
 
+// The bit in which g and g - 1 differ in Gray code (g > 0).
+__host__ __device__ constexpr int gray_step(int g) { return g & 1 ? 0 : 1 + gray_step(g >> 1); }
+
+// Calls f(u, word) for each register u of thread t in layout L: the word is
+// swizzle(layout_base(t, L) | u << L).  The two parts share no bit and the
+// swizzle is linear over XOR, so the word is swizzle(layout_base) ^
+// swizzle(u << L); walking u in Gray-code order, each word is the last one
+// XOR one of five, an instruction a register where shifting u by the
+// layout took four.
+template <typename F>
+__device__ __forceinline__ void for_each_word(uint32_t t, int layout, F&& f) {
+  uint32_t step[kPerLog];
+#pragma unroll
+  for (int i = 0; i < kPerLog; ++i) step[i] = swizzle(1u << (layout + i));
+  uint32_t q = swizzle(layout_base(t, layout));
+#pragma unroll
+  for (int g = 0; g < kPer; ++g) {
+    if (g) q ^= step[gray_step(g)];
+    f(g ^ (g >> 1), q);
+  }
+}
+
 // Moves the registers from layout `from` to layout `to` through shared
 // memory (s: the high words, then the low words, then the indices, B each).
 __device__ __forceinline__ void relayout(uint32_t (&hi)[kPer], uint32_t (&lo)[kPer],
@@ -201,23 +228,17 @@ __device__ __forceinline__ void relayout(uint32_t (&hi)[kPer], uint32_t (&lo)[kP
                                          int from, int to) {
   constexpr uint32_t kB = 1u << kLogBlock;
   __syncthreads();  // the previous re-map's reads are done
-  uint32_t pb = layout_base(t, from);
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const uint32_t q = swizzle(pb | (static_cast<uint32_t>(u) << from));
+  for_each_word(t, from, [&](int u, uint32_t q) {
     s[q] = hi[u];
     s[kB + q] = lo[u];
     s[2 * kB + q] = ix[u];
-  }
+  });
   __syncthreads();
-  pb = layout_base(t, to);
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const uint32_t q = swizzle(pb | (static_cast<uint32_t>(u) << to));
+  for_each_word(t, to, [&](int u, uint32_t q) {
     hi[u] = s[q];
     lo[u] = s[kB + q];
     ix[u] = s[2 * kB + q];
-  }
+  });
 }
 
 // Registers, a bit each, whose pair runs descending in a stage of k = 2^lk
@@ -270,6 +291,22 @@ __device__ __forceinline__ void shared_stage(uint32_t (&hi)[kPer], uint32_t (&lo
   }
 }
 
+// The first pass's stages (k = 2^lk, block-slot bit x) in schedule order,
+// lk = 1 .. kLogBlock and x = lk-1 .. 0 for each, packed as lk << 4 | x.
+constexpr int kFirstCount = kLogBlock * (kLogBlock + 1) / 2;
+struct FirstStages {
+  uint8_t v[kFirstCount];
+};
+constexpr FirstStages first_stages() {
+  FirstStages s{};
+  int n = 0;
+  for (int lk = 1; lk <= kLogBlock; ++lk) {
+    for (int x = lk - 1; x >= 0; --x) s.v[n++] = static_cast<uint8_t>(lk << 4 | x);
+  }
+  return s;
+}
+__constant__ FirstStages kFirstStages = first_stages();
+
 // A shared pass over each block of n = min(E, B) elements.  kFromCols: the
 // first pass, reading and packing the int64 columns and sorting the block
 // through every k <= B (a lone block shorter than B is padded with all-ones
@@ -280,7 +317,7 @@ __device__ __forceinline__ void shared_stage(uint32_t (&hi)[kPer], uint32_t (&lo
 // a value where a 64-bit load takes two.  Loads and stores run in layout
 // kTop: consecutive threads, consecutive slots.
 template <bool kFromCols, bool kToCols>
-__global__ void __launch_bounds__(kThreads, kFromCols ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, 2)
 bitonic_shared_kernel(const int64_t* __restrict__ tile, const int64_t* __restrict__ depth,
                       const int64_t* __restrict__ index, uint64_t* __restrict__ keys,
                       uint32_t* __restrict__ idx, int64_t* __restrict__ out_tile,
@@ -313,10 +350,13 @@ bitonic_shared_kernel(const int64_t* __restrict__ tile, const int64_t* __restric
   // The stage loops stay rolled: a stage is 16 compare-exchanges and maybe
   // a re-map, and unrolled copies would only add registers.
   if constexpr (kFromCols) {
+    // One loop over the stages in schedule order, read from kFirstStages:
+    // it carries one counter and the layout, as a merge's carries x and
+    // the layout (its lk stays a parameter), so it fits 128 registers.
 #pragma unroll 1
-    for (int l = 1; l <= kLogBlock; ++l) {
-#pragma unroll 1
-      for (int x = l - 1; x >= 0; --x) shared_stage(hi, lo, ix, smem, t, b, l, x, blockIdx.x);
+    for (int s = 0; s < kFirstCount; ++s) {
+      const int v = kFirstStages.v[s];
+      shared_stage(hi, lo, ix, smem, t, b, v >> 4, v & 15, blockIdx.x);
     }
   } else {
 #pragma unroll 1

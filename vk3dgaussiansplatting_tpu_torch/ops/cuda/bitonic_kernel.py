@@ -9,7 +9,10 @@ in passes of near-equal size, at most `GROUP` to a pass: fewer than
 `WIDE_FROM` in registers (2^g slots of one stride a thread), more over
 blocks of BLOCK slots strided through the list (runs of 2^(13-g)
 consecutive slots, the distances' bits above them); then one shared-memory
-pass for the distances below BLOCK.  `schedule` is the network's one
+pass for the distances below BLOCK.  The first pass runs its 91 stages
+(every k <= BLOCK) in one loop over a table of them, in 128 registers, two
+blocks an SM as a merge runs (0.905 ms at 2^24 on an H100, PERF.md).
+`schedule` is the network's one
 schedule: the wrapper walks it (`launches`, each pass's kernel, k, lowest
 distance and group: the choice of a register or a wide pass is made there
 alone) and launches the passes one by one on the current stream through
@@ -42,7 +45,7 @@ from . import _build
 
 # Elements a block sorts in shared memory (csrc/bitonic.cu's kLogBlock):
 # 2^13, 12 B each in 96 KB of dynamic shared memory, 256 threads holding 32
-# elements each, two blocks an SM in a merge.
+# elements each, two blocks an SM in the first pass and in a merge.
 BLOCK = 1 << 13
 # Global distances fused into one pass (csrc/bitonic.cu's kGroup, a wide
 # pass's most: its runs of 2^(13-g) consecutive slots stay 16 or more).
