@@ -8,7 +8,7 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
 
   device   the card's name, and name + power limit from nvidia-smi
   build    the CUDA kernels compiled from csrc/, one nvcc per source, all
-           started together (seconds, ptxas report); K7, K8 and the radix
+           started together (seconds, ptxas report); K7, K1 and the radix
            sort's kernels without a spill or a stack, or the run fails;
            csrc/radix.cu's constants (vk3d_radix_config) equal to
            radix_kernel's copies
@@ -16,7 +16,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            versions): element counts equal, 8-bit ±1 per channel
   check    K1 against its plain version bit for bit on edge cases (zero
            counts, a 12,000-slot gaussian, 1.1M zero counts in a row,
-           total > E, E % 4 != 0, N = 0); the radix sort five times with
+           total > E, E % 4 != 0, N = 0), as rows and, over six columns
+           made as keygen's, as sort elements (`expand_elements`); the radix sort five times with
            equal results and against its plain version and the stable
            torch.sort bit for bit on edge cases (a 4096-tile config, count
            0 and E, slots past the count not SENTINEL, sentinels between
@@ -30,17 +31,22 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            1280x720, capacity 4,245,663), scale calibrated to 3,487,911 live
            elements ±3% (K7's counts mode); 3 warm-up + 20 timed frames with
            the camera nudged each frame; median ms/frame and per-pass ms from
-           CUDA events; K7, K1, K8, the radix sort and K2 launch once a
+           CUDA events; K7, K1, the radix sort and K2 launch once a
            frame, the radix sort's kernels (LAUNCHES["radix_kernels"]) are its
            planned_kernels a sort, no feature table is built, and the
            warm-up frames call no torch.sort or argsort (a
            TorchFunctionMode counts them); one more frame under
-           torch.profiler: its keygen pass is K7, K1's partition and
-           expansion kernels and K8 in a row, no other device op between
+           torch.profiler: its keygen pass is K7 and K1's partition and
+           expansion kernels in a row, no other device op between
            them (`check_keygen_pass`; so on the capped, CLI and
            distributed paths)
   check    on that scene's last frame: keygen/sort/ranges on the card ==
-           on the CPU bit for bit; K1 == its plain version bit for bit; K2
+           on the CPU bit for bit; K1 (`expand_elements`, the expansion
+           that stores the sort elements) == its plain version
+           (decode_slots_plain over expand_rows_plain) bit for bit on
+           the frame's own rows, its time, plain time and bound (the
+           rows that own a live slot and the scan read, 24 B a slot and
+           the count written); K2
            (blend_tiles on the frame's own GaussianFrameData) vs its plain
            version per channel 8-bit max |Δ| <= 2 with |Δ| > 1 on at most
            1e-4 of pixel-channels; kernel, plain and library times and the
@@ -52,9 +58,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            values, every differing gaussian checked to be an _fma tie of the
            plain version (`fma_ties`); the offset row, the scan `cum` and
            the total bit for bit; its counts mode (total, extents, flags)
-           bit for bit; K8 decode_slots against decode_slots_plain on K1's
-           columns bit for bit; their times, plain times and bounds (K7 316
-           B a gaussian, K8 24 B a live slot + 24 B a slot), K7's counts
+           bit for bit; its time, plain time and bound (316 B a
+           gaussian), K7's counts
            mode and the wrapper's host µs a call.  The radix sort on the
            frame's own keygen output five times (equal results) and against
            its plain version and the stable torch.sort it replaced, bit for
@@ -116,7 +121,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            code (the unmasked K5, the K1 chunk map and the mask), and the
            layout's gid; the unmasked compact_runs and K6 (on the slabs'
            chunk offsets, with its kernel's profiler time) on every lane,
-           K1' (garden) bit-exact; K7 and K8 as above on garden's
+           K1' (garden, `expand_elements` under the prefilter) as K1
+           above; K7 as above on garden's
            prefiltered frame, with its live thresholds; the radix sort on
            the last frame's list as above; the capped
            image against the uncapped K2 frame of the same camera within
@@ -126,7 +132,7 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            load_gaussians through the native parser (ply_load_s, the
            parser from its log line), its table bit for bit with the numpy
            parser's; the CLI on the card (--ply, 1920x1080, 3 frames, --out:
-           K7, K1, K8, the radix sort and K2 once a frame, the sort's
+           K7, K1, the radix sort and K2 once a frame, the sort's
            planned kernels each time), its PNG read
            back with the port's
            read_png bit for bit with Renderer.draw on the same table and
@@ -293,7 +299,7 @@ COUNTERS = (
     "expand_rows", "expand_rows_streamed", "blend_tiles", "blend_flat", "compact_slabs",
     "compact_runs", "compact_segments", "blend_strip", "bitonic_sort", "keygen_project",
     # K7 in its counts mode (count_live_elements): the steady switch's probe.
-    "keygen_count", "decode_slots", "radix_sort",
+    "keygen_count", "radix_sort",
 )
 
 
@@ -424,8 +430,7 @@ class Capture:
     `new_frame()`, `counts[name]` the calls since the capture began."""
 
     TARGETS = (
-        (expand_kernel, "expand_rows"),
-        (expand_kernel, "expand_rows_streamed"),
+        (expand_kernel, "expand_elements"),
         (blend_ops, "blend_tiles"),
         (blend_ops, "pack_feature_table"),
         (blend_ops, "blend_flat"),
@@ -434,7 +439,6 @@ class Capture:
         (capped_ops, "capped_finish"),
         (bitonic_ops, "sort_elements_bitonic"),
         (keygen_kernel, "project_gaussians"),
-        (keygen_kernel, "decode_slots"),
         (radix_kernel, "radix_sort"),
     )
 
@@ -489,12 +493,13 @@ def bound(nbytes: int, ops: int) -> dict:
 
 
 def expand_bound(cols: torch.Tensor, cum: torch.Tensor, capacity: int) -> dict:
-    """K1's bound: the scan read, the column values of the rows that own a
-    live slot read once, the [C, E] output and the total written."""
+    """keygen's expansion's bound: the scan read, the six column values of
+    the rows that own a live slot read once, the three [E] int64 columns of
+    the sort elements and the count written."""
     counts = counts_of(cum)
     owning = int(((counts > 0) & (cum - counts < capacity)).sum())
     ncols, n = cols.shape
-    return bound(4 * ncols * owning + 8 * n + 4 * ncols * capacity + 8, 0)
+    return bound(4 * ncols * owning + 8 * n + 24 * capacity + 8, 0)
 
 
 def counts_of(cum: torch.Tensor) -> torch.Tensor:
@@ -690,15 +695,15 @@ def short_op(name: str) -> str:
 
 # A card keygen pass, device op by device op after K7's full launch (its
 # scratch memset comes just before it).
-KEYGEN_PASS = ("partition_kernel", "expand_rows_kernel", "decode_slots_kernel")
+KEYGEN_PASS = ("partition_kernel", "expand_rows_kernel")
 
 
 def check_keygen_pass(ops: list[str], what: str) -> list[str]:
     """Every full K7 launch among `ops` (a profiled window's device ops) is
-    followed at once by K1's partition kernel, K1's expansion and K8: no
-    PyTorch kernel, memset or copy between them.  Raises otherwise, or if
-    the window holds no full K7 launch; returns the last pass's ops, from
-    the one before K7 to K8."""
+    followed at once by K1's partition kernel and K1's expansion, which
+    stores the sort elements: no PyTorch kernel, memset or copy between
+    them.  Raises otherwise, or if the window holds no full K7 launch;
+    returns the last pass's ops, from the one before K7 to K1's expansion."""
     full = [j for j, op in enumerate(ops) if "keygen_project_kernel" in op]
     if not full:
         raise RuntimeError(f"{what}: the profiler saw no full K7 launch in "
@@ -753,7 +758,7 @@ def phase_fixtures() -> None:
 
 
 # The kernels the uncapped frame launches once each; the bitonic path's.
-UNCAPPED_PATH = ("keygen_project", "expand_rows", "decode_slots", "radix_sort", "blend_tiles")
+UNCAPPED_PATH = ("keygen_project", "expand_rows", "radix_sort", "blend_tiles")
 BITONIC_PATH = tuple(k for k in UNCAPPED_PATH if k != "radix_sort") + ("bitonic_sort",)
 
 
@@ -806,7 +811,7 @@ def run_scene(name: str):
     radix_kernels = check_radix_kernels(name, call_plan(cap.args["radix_sort"]),
                                         counts["radix_sort"], read_kernels()["radix_sort"])
     if any(v != drawn for v in launches.values()):
-        raise RuntimeError(f"{name}: K7, K1, K8, the radix sort and K2 must launch once a frame, "
+        raise RuntimeError(f"{name}: K7, K1, the radix sort and K2 must launch once a frame, "
                            f"{drawn} frames: {launches}")
     if sorts.calls:
         raise RuntimeError(f"{name}: {sorts.calls} torch.sort/argsort calls in "
@@ -880,17 +885,30 @@ def check_expand_edge_cases() -> None:
     ]
     for counts, capacity in cases:
         n = len(counts)
+        counts = np.asarray(counts, np.int64)
         cols = torch.from_numpy(np.stack([
             np.arange(n, dtype=np.int32),
             rng.integers(-(2**31), 2**31, size=n).astype(np.int32),
         ])).cuda()
-        c = torch.cumsum(torch.from_numpy(np.asarray(counts, np.int64)).cuda(), 0)
+        c = torch.cumsum(torch.from_numpy(counts).cuda(), 0)
         got, total = expand_kernel.expand_rows(cols, c, capacity)
         want, want_total = expand_kernel.expand_rows_plain(cols, c, capacity)
         if not torch.equal(got, want) or int(total) != int(want_total):
             raise RuntimeError(f"expand_rows edge case (n={n}, capacity={capacity}) differs")
-    log(f"check: expand_rows bit-exact on {len(cases)} edge cases (a 12,000-slot gaussian, "
-        f"1.1M zero counts, E % 4 != 0, total > E, N = 0)")
+        # keygen's six rows: id, clamped offset, max(w, 1), min_x, min_y, depth bits.
+        rows = torch.from_numpy(np.stack([
+            np.arange(n), np.minimum(np.cumsum(counts) - counts, capacity),
+            rng.integers(1, 120, size=n), rng.integers(0, 120, size=n),
+            rng.integers(0, 68, size=n), rng.integers(-(2**31), 2**31, size=n),
+        ]).astype(np.int32)).cuda()
+        for streamed in (False, True):
+            got_el = expand_kernel.expand_elements(rows, c, capacity, 120, streamed=streamed)
+            want_el = expand_kernel.expand_elements_plain(rows, c, capacity, 120)
+            if not all(torch.equal(a, b) for a, b in zip(got_el, want_el)):
+                raise RuntimeError(f"expand_elements edge case (n={n}, capacity={capacity}, "
+                                   f"streamed={streamed}) differs")
+    log(f"check: expand_rows and expand_elements bit-exact on {len(cases)} edge cases (a "
+        f"12,000-slot gaussian, 1.1M zero counts, E % 4 != 0, total > E, N = 0)")
 
 
 def torch_sort_elements(el, num_tiles: int, with_perm: bool = False):
@@ -1163,26 +1181,41 @@ def check_radix_ptxas() -> list[str]:
     return entries
 
 
+def check_expansion(call, what: str) -> dict:
+    """keygen's expansion (`expand_elements`: K1, or K1' under the
+    prefilter) on one call's own inputs (K7's rows and scan) against its
+    plain version, decode_slots_plain over expand_rows_plain: tile, depth,
+    index and the count bit for bit.  Its time, the plain version's, its
+    kernels from the profiler and its bound.  No one PyTorch call computes
+    the same function, so no library time."""
+    (cols, cum, capacity, grid_w), kw = call
+
+    def kernel():
+        return expand_kernel.expand_elements(cols, cum, capacity, grid_w, **kw)
+
+    got = kernel()
+    want = expand_kernel.expand_elements_plain(cols, cum, capacity, grid_w)
+    for col, a, b in zip(("tile", "depth", "index", "count"), got, want):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{what}: expand_elements differs from its plain version in {col} "
+                               f"at {int((a != b).sum())} values")
+    return {
+        "max_abs_err": 0,
+        "live": int(want[3]),
+        "capacity": capacity,
+        "ms": cuda_ms(kernel, 20),
+        "plain_ms": cuda_ms(lambda: expand_kernel.expand_elements_plain(cols, cum, capacity,
+                                                                        grid_w), 3),
+        "library_ms": None,
+        "device_ms": device_breakdown(kernel),
+        **expand_bound(cols, cum, capacity),
+    }
+
+
 def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
     """Each kernel against its plain version on the frame's own inputs, with
     its bound and the library call's time."""
-    (cols, cum, capacity), _ = args["expand_rows"]  # cum: K7's scan
-    counts = counts_of(cum)
-    got, total = expand_kernel.expand_rows(cols, cum, capacity)
-    want, want_total = expand_kernel.expand_rows_plain(cols, cum, capacity)
-    live = int(min(int(total), capacity))
-    if int(total) != int(want_total) or not torch.equal(got[:, :live], want[:, :live]):
-        raise RuntimeError(f"{name}: expand_rows differs from its plain version")
-    if got[:, live:].any():
-        raise RuntimeError(f"{name}: expand_rows left dead slots non-zero")
-    k1 = {
-        "max_abs_err": int((got.to(torch.int64) - want.to(torch.int64)).abs().max()),
-        "ms": cuda_ms(lambda: expand_kernel.expand_rows(cols, cum, capacity), 20),
-        "plain_ms": cuda_ms(lambda: expand_kernel.expand_rows_plain(cols, cum, capacity), 3),
-        "library_ms": cuda_ms(lambda: torch.repeat_interleave(cols, counts, dim=1), 10),
-        "device_ms": device_breakdown(lambda: expand_kernel.expand_rows(cols, cum, capacity)),
-        **expand_bound(cols, cum, capacity),
-    }
+    k1 = check_expansion(args["expand_elements"], name)
 
     (elements, rng_, frame, _cfg), _ = args["blend_tiles"]
     img = blend_ops.blend_tiles(elements, rng_, frame, config)
@@ -1208,11 +1241,10 @@ def check_kernels(args, config: RenderConfig, name: str, passes: dict) -> dict:
         **bound(8 * work["slots"] + FRAME_ROW_BYTES * work["rows"] + 16 * config.num_tiles
                 + 12 * config.width * config.height, work["ops"]),
     }
-    log(f"check {name}: expand_rows bit-exact ({live} live of {capacity}, on K7's scan), kernel "
-        f"{k1['ms']:.3f} ms vs plain {k1['plain_ms']:.3f} ms, "
-        f"kernels {k1['device_ms']}, repeat_interleave "
-        f"{k1['library_ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}, "
-        f"{k1['bound_bytes']} B); blend_tiles float max |Δ| {k2['max_abs_err']:.3e}, 8-bit "
+    log(f"check {name}: expand_elements == plain bit for bit ({k1['live']} live of "
+        f"{k1['capacity']}, on K7's rows and scan), kernel {k1['ms']:.3f} ms vs plain "
+        f"{k1['plain_ms']:.3f} ms, kernels {k1['device_ms']}, bound {k1['bound_ms']:.4f} ms "
+        f"({k1['bound_by']}, {k1['bound_bytes']} B); blend_tiles float max |Δ| {k2['max_abs_err']:.3e}, 8-bit "
         f"(max, share>1) per channel {per_ch}, kernel {k2['ms']:.3f} ms vs plain "
         f"{k2['plain_ms']:.3f} ms, blend section {passes['blend']:.3f} ms, bound "
         f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}, {k2['bound_bytes']} B; {work})")
@@ -1302,9 +1334,9 @@ def check_projection(call, what: str) -> dict:
 
 
 def check_keygen(args, name: str, sh_modes=()) -> dict:
-    """K7 and K8 against their plain versions on the frame's own inputs
-    (the last frame's table, camera, config and thresholds; K8 on K1's
-    columns), K7 also in each SH mode of `sh_modes`; times and bounds."""
+    """K7 against its plain version on the frame's own inputs (the last
+    frame's table, camera, config and thresholds), also in each SH mode of
+    `sh_modes`; times and bound."""
     call = args["project_gaussians"][0]
     table, view, proj, cam_pos, config, capacity, thr = call
     n = table.num_gaussians
@@ -1335,25 +1367,6 @@ def check_keygen(args, name: str, sh_modes=()) -> dict:
                 + (8 * thr.numel() if thr is not None else 0), KEYGEN_FLOPS * n),
     })
 
-    (cols, total, grid_w), _ = args["decode_slots"]
-    got = keygen_kernel.decode_slots(cols, total, grid_w)
-    want = keygen_kernel.decode_slots_plain(cols, total, grid_w)
-    for col, a, b in zip(("tile", "depth", "index", "count"), got, want):
-        if not torch.equal(a, b):
-            raise RuntimeError(f"{name}: decode_slots differs from its plain version in {col} at "
-                               f"{int((a != b).sum())} values")
-    e = cols.shape[1]
-    live = int(want[3])
-    k8 = {
-        "max_abs_err": 0,
-        "ms": cuda_ms(lambda: keygen_kernel.decode_slots(cols, total, grid_w), 20),
-        "plain_ms": cuda_ms(lambda: keygen_kernel.decode_slots_plain(cols, total, grid_w), 3),
-        "library_ms": None,
-        "device_ms": device_breakdown(lambda: keygen_kernel.decode_slots(cols, total, grid_w)),
-        # The live slots' six columns and the total read, three int64
-        # columns and the count written.
-        **bound(24 * live + 24 * e + 16, 0),
-    }
     log(f"check {name} keygen: keygen_project == plain on {n} gaussians ({k7['live']} live, "
         f"prefilter {'on' if thr is not None else 'off'}): packed rows, extents, "
         f"visible/keep bit for bit; floats (values differing, max ulp) {k7['mismatch']}, "
@@ -1366,19 +1379,19 @@ def check_keygen(args, name: str, sh_modes=()) -> dict:
         f"{k7['host_us_params']:.1f}, _check {k7['host_us_check']:.1f}, the outputs' "
         f"allocations {k7['host_us_outputs']:.1f}), kernels "
         f"{k7['device_ms']}, bound {k7['bound_ms']:.4f} ms ({k7['bound_by']}, "
-        f"{k7['bound_bytes']} B); decode_slots == plain bit for bit ({live} live of {e}), "
-        f"{k8['ms']:.3f} ms vs plain {k8['plain_ms']:.3f} ms, kernels {k8['device_ms']}, bound "
-        f"{k8['bound_ms']:.4f} ms ({k8['bound_bytes']} B)")
-    return {"keygen_project": k7, "decode_slots": k8}
+        f"{k7['bound_bytes']} B)")
+    return {"keygen_project": k7}
 
 
 def check_keygen_ptxas() -> list[str]:
-    """ptxas on K7 (its full and counts-mode kernels) and K8: no spills and
-    no stack, or the run fails."""
+    """ptxas on K7 (its full and counts-mode kernels) and K1 (its partition
+    search and the expansion's four variants): no spills and no stack, or
+    the run fails."""
     entries = [" ".join(x) for x in ptxas_report() if x[0].startswith(
-        ("keygen_project_kernel", "keygen_count_kernel", "decode_slots_kernel"))]
-    if len(entries) != 3:
-        raise RuntimeError(f"ptxas reported {len(entries)} keygen kernels, not 3: {entries}")
+        ("keygen_project_kernel", "keygen_count_kernel", "partition_kernel",
+         "expand_rows_kernel"))]
+    if len(entries) != 7:
+        raise RuntimeError(f"ptxas reported {len(entries)} keygen kernels, not 7: {entries}")
     for entry in entries:
         if re.search(r"[1-9]\d* bytes (stack frame|spill)", entry):
             raise RuntimeError(f"keygen kernel spills or uses a stack: {entry}")
@@ -1665,8 +1678,7 @@ def run_capped(name: str, mult: float):
     tables = cap.counts.get("pack_feature_table", 0)
     if tables:
         raise RuntimeError(f"{name} capped: the capped frames built {tables} feature tables")
-    path_kernels = ["keygen_project", "expand_rows", "decode_slots", "radix_sort", "blend_flat",
-                    "compact_slabs"]
+    path_kernels = ["keygen_project", "expand_rows", "radix_sort", "blend_flat", "compact_slabs"]
     if chained:
         path_kernels += ["expand_rows_streamed", "keygen_count"]
     if min(launches[k] for k in path_kernels) == 0 or per_frame["radix_sort"] != 1:
@@ -1860,33 +1872,19 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         "plain_ms": cuda_ms(lambda: compact_kernel.compact_segments_plain(src, src0, ep5), 3),
     }
 
-    # K7 and K8 on the prefiltered frame's own call (the live thresholds).
+    # K7 on the prefiltered frame's own call (the live thresholds).
     keygen_call = [c for c in cap.calls["project_gaussians"] if c[0][5] is not None][-1]
     if keygen_call[0][6] is not None:
-        res["capped_keygen"] = check_keygen({"project_gaussians": keygen_call,
-                                             "decode_slots": cap.calls["decode_slots"][-1]},
+        res["capped_keygen"] = check_keygen({"project_gaussians": keygen_call},
                                             f"{name} capped")
 
     # The radix sort on the last frame's list.
     res["capped_radix"] = check_radix(cap.args["radix_sort"], f"{name} capped")
 
     # K1' under the prefilter.
-    if cap.calls.get("expand_rows_streamed"):
-        (cols, cum, capacity), _ = cap.calls["expand_rows_streamed"][-1]
-        counts = counts_of(cum)
-        fn = expand_kernel.expand_rows_streamed
-        g, total = fn(cols, cum, capacity)
-        w, want_total = expand_kernel.expand_rows_plain(cols, cum, capacity)
-        n_live = min(int(total), capacity)
-        if int(total) != int(want_total) or not torch.equal(g[:, :n_live], w[:, :n_live]):
-            raise RuntimeError(f"{name}: expand_rows_streamed differs from its plain version")
-        res["expand_rows_streamed"] = {
-            "max_abs_err": int((g.to(torch.int64) - w.to(torch.int64)).abs().max()),
-            "ms": cuda_ms(lambda: fn(cols, cum, capacity), 20),
-            "plain_ms": cuda_ms(lambda: expand_kernel.expand_rows_plain(cols, cum, capacity), 3),
-            "library_ms": cuda_ms(lambda: torch.repeat_interleave(cols, counts, dim=1), 10),
-            **expand_bound(cols, cum, capacity),
-        }
+    streamed = [c for c in cap.calls.get("expand_elements", []) if c[1].get("streamed")]
+    if streamed:
+        res["expand_rows_streamed"] = check_expansion(streamed[-1], f"{name} capped")
 
     # The capped frame against the uncapped K2 frame of the same camera.
     view, proj = cam.matrices()
@@ -1915,9 +1913,10 @@ def check_capped(renderer: Renderer, cam: Camera, cap: Capture, out, name: str) 
         f"{res['compact_segments']['ms']:.3f} ms vs plain {res['compact_segments']['plain_ms']:.3f}, "
         f"kernels {res['compact_segments']['device_ms']}, "
         f"bound {res['compact_segments']['bound_ms']:.4f}"
-        + "".join(f"; {k} bit-exact, {res[k]['ms']:.3f} ms vs plain {res[k]['plain_ms']:.3f}, "
-                  f"repeat_interleave {res[k]['library_ms']:.3f}, bound {res[k]['bound_ms']:.4f} "
-                  f"({res[k]['bound_by']})"
+        + "".join(f"; {k} (expand_elements) == plain bit for bit ({res[k]['live']} live of "
+                  f"{res[k]['capacity']}), {res[k]['ms']:.3f} ms vs plain "
+                  f"{res[k]['plain_ms']:.3f}, kernels {res[k]['device_ms']}, bound "
+                  f"{res[k]['bound_ms']:.4f} ({res[k]['bound_by']})"
                   for k in ("expand_rows_streamed",) if k in res)
         + f"; capped vs uncapped K2 frame 8-bit (max, share>1) per channel {vs_k2}")
     return res
@@ -2039,7 +2038,7 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
 
 
 # The kernels every rank of the distributed frame launches.
-DIST_KERNELS = ("keygen_project", "expand_rows", "decode_slots", "radix_sort", "blend_strip")
+DIST_KERNELS = ("keygen_project", "expand_rows", "radix_sort", "blend_strip")
 
 
 def run_dist(mult: float) -> dict:
@@ -2256,6 +2255,8 @@ def phase_app(mult: float) -> dict:
 OFF_PATH = ("compact_segments", "compact_runs")
 
 META = {
+    # keygen's expansion with the slot decode (JAX ops/keygen.py:203-262) in
+    # its store.
     "expand_rows": ("vk3dgaussiansplatting_tpu_torch/csrc/expand.cu",
                     "vk3dgaussiansplatting_tpu/ops/pallas/expand_kernel.py:516"),
     "expand_rows_streamed": ("vk3dgaussiansplatting_tpu_torch/csrc/expand.cu",
@@ -2275,13 +2276,11 @@ META = {
                      "vk3dgaussiansplatting_tpu/ops/bitonic.py:38"),
     "keygen_project": ("vk3dgaussiansplatting_tpu_torch/csrc/keygen.cu",
                        "vk3dgaussiansplatting_tpu/ops/keygen.py:126"),
-    "decode_slots": ("vk3dgaussiansplatting_tpu_torch/csrc/keygen.cu",
-                     "vk3dgaussiansplatting_tpu/ops/keygen.py:126"),
     # Also the distributed frame's 3-key sort, parallel/dist.py:195 _sort3.
     "radix_sort": ("vk3dgaussiansplatting_tpu_torch/csrc/radix.cu",
                    "vk3dgaussiansplatting_tpu/ops/sort.py:37"),
 }
-NOT_TPU_KERNELS = ("bitonic_sort", "keygen_project", "decode_slots", "radix_sort")
+NOT_TPU_KERNELS = ("bitonic_sort", "keygen_project", "radix_sort")
 
 
 def main() -> None:
@@ -2324,7 +2323,7 @@ def main() -> None:
         renderer, cam, cap, out, path_launches, capped_frame = run_capped(name, mults[name])
         per_frame["capped_steady" if renderer._plan is not None else "capped_temporal"] = capped_frame
         for k in ("keygen_project", "keygen_count", "expand_rows", "expand_rows_streamed",
-                  "decode_slots", "radix_sort", "blend_flat", "compact_slabs"):
+                  "radix_sort", "blend_flat", "compact_slabs"):
             launches[k] += path_launches[k]
         results[name].update(check_capped(renderer, cam, cap, out, name))
         if renderer._plan is not None:

@@ -1,19 +1,21 @@
-"""keygen's per-gaussian pass K7 (`keygen_kernel.project_gaussians`) and
-slot decode K8 (`decode_slots`), csrc/keygen.cu.
+"""keygen's per-gaussian pass K7 (`keygen_kernel.project_gaussians`,
+csrc/keygen.cu) and the expansion that decodes the sort elements in its
+store (`expand_kernel.expand_elements`, csrc/expand.cu).
 
 On the CPU the wrappers run their plain versions (`project_gaussians_plain`,
-`decode_slots_plain`); here they are held, through the port's
-`generate_sort_elements` and `count_live_elements`, to the JAX package's
-jitted functions: tile, depth, index, count and the live counts bit for bit,
-the frame data within test_torch_keygen.py's tolerance (rtol 1e-5, atol
-1e-6, NaN equal to NaN), with and without the prefilter's thresholds and in
-the three SH modes, then on the edge cases (behind the near plane, det == 0,
-a zero-length view direction, +-inf positions, radii far off the grid,
-N = 1, and N = 0 against the empty list).  The launchers refuse CPU
-tensors and wrong dtypes with `ValueError`.  On the card (`cuda` marker,
-skipped without one) K7 and K8 against their plain versions on the same
-edge cases: integers bit for bit, floats within 1 ulp (the plain
-version's float64 `_fma` is one ulp off on a float32 tie).
+`decode_slots_plain` over `expand_rows_plain`); here they are held, through
+the port's `generate_sort_elements` and `count_live_elements`, to the JAX
+package's jitted functions: tile, depth, index, count and the live counts
+bit for bit, the frame data within test_torch_keygen.py's tolerance (rtol
+1e-5, atol 1e-6, NaN equal to NaN), with and without the prefilter's
+thresholds and in the three SH modes, then on the edge cases (behind the
+near plane, det == 0, a zero-length view direction, +-inf positions, radii
+far off the grid, N = 1, and N = 0 against the empty list). The launchers
+refuse CPU tensors and wrong dtypes or shapes with `ValueError`. On the card
+(`cuda` marker, skipped without one) K7 and the fused expansion against
+their plain versions on the same edge cases: integers bit for bit, floats
+within 1 ulp (the plain version's float64 `_fma` is one ulp off on a float32
+tie).
 """
 
 import dataclasses
@@ -157,7 +159,7 @@ def _compare_with_jax(table, config, cam, thr=None):
 
 def test_plain_versions_match_jax():
     """generate_sort_elements and count_live_elements on the CPU (K7's and
-    K8's plain versions) against jitted JAX, with the prefilter unset and
+    the fused expansion's plain versions) against jitted JAX, with the prefilter unset and
     set, in each SH mode."""
     table = _cloud(512)
     cam = _camera()
@@ -170,7 +172,7 @@ def test_plain_versions_match_jax():
         thr = _thresholds(table, cam, config) if filtered else None
         live.append(_compare_with_jax(table, config, cam, thr))
     assert live[0] > live[1] > 0  # the thresholds filtered some elements
-    assert LAUNCHES["keygen_project"] == LAUNCHES["keygen_count"] == LAUNCHES["decode_slots"] == 0
+    assert LAUNCHES["keygen_project"] == LAUNCHES["keygen_count"] == LAUNCHES["expand_rows"] == 0
 
 
 EDGE_CASES = ("behind_near", "det_zero", "nan_dir", "inf_pos", "radius_off_grid", "n0_n1")
@@ -204,9 +206,9 @@ def test_launchers_reject_cpu_and_wrong_dtypes():
     with pytest.raises(ValueError, match="device"):
         kk._launch_project(table, view, proj, cam.position, config, 64)
     cols = torch.zeros((6, 16), dtype=torch.int32)
-    total = torch.tensor(3, dtype=torch.int64)
+    cum = torch.arange(1, 17, dtype=torch.int64)
     with pytest.raises(ValueError, match="device"):
-        kk._launch_decode(cols, total, config.grid_width)
+        expand_kernel._launch_elements("expand_rows", cols, cum, 64, config.grid_width)
     with pytest.raises(ValueError, match="float32"):
         kk.project_gaussians(dataclasses.replace(table, sh=table.sh.double()), view, proj,
                              cam.position, config, 64)
@@ -214,18 +216,21 @@ def test_launchers_reject_cpu_and_wrong_dtypes():
         kk.project_gaussians(table, view, proj, cam.position, config, 64,
                              torch.zeros(config.num_tiles, dtype=torch.int32))
     with pytest.raises(ValueError, match="int32"):
-        kk.decode_slots(cols.to(torch.int64), total, config.grid_width)
+        expand_kernel.expand_elements(cols.to(torch.int64), cum, 64, config.grid_width)
     with pytest.raises(ValueError, match="int64"):
-        kk.decode_slots(cols, total.to(torch.int32), config.grid_width)
-    assert LAUNCHES["keygen_project"] == LAUNCHES["keygen_count"] == LAUNCHES["decode_slots"] == 0
+        expand_kernel.expand_elements(cols, cum.to(torch.int32), 64, config.grid_width)
+    with pytest.raises(ValueError, match="keygen's"):
+        expand_kernel.expand_elements(cols[:5], cum, 64, config.grid_width)
+    assert LAUNCHES["keygen_project"] == LAUNCHES["keygen_count"] == LAUNCHES["expand_rows"] == 0
 
 
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_cuda():
     """K7 (full and counts mode, with and without thresholds, each SH mode)
-    and K8 against their plain versions on the card, on every edge case."""
+    and the fused expansion over K7's rows against their plain versions on
+    the card, on every edge case."""
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: K7 and K8 are CUDA kernels with no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: K7 and K1 are CUDA kernels with no CPU mode")
     for case in EDGE_CASES:
         tables, config, cam = _edge_case(case)
         if case == "n0_n1":
@@ -252,8 +257,8 @@ def test_kernels_match_plain_versions_on_cuda():
                                 assert v == 0, f"{what}: {name} differs at {v} values"
                             else:
                                 assert v[1] <= 1, f"{what}: {name} {v[0]} values, max ulp {v[1]}"
-                    cols, total = expand_kernel.expand_rows(got.cols, got.cum, capacity)
-                    for a, b in zip(kk.decode_slots(cols, total, tcfg.grid_width),
-                                    kk.decode_slots_plain(cols, total, tcfg.grid_width)):
-                        assert torch.equal(a, b), f"{what}: decode_slots differs"
+                    el_args = (got.cols, got.cum, capacity, tcfg.grid_width)
+                    for a, b in zip(expand_kernel.expand_elements(*el_args),
+                                    expand_kernel.expand_elements_plain(*el_args)):
+                        assert torch.equal(a, b), f"{what}: expand_elements differs"
     torch.cuda.synchronize()

@@ -90,13 +90,12 @@ def _calls(module, dev):
         "expand": (expand_kernel, [
             (expand_kernel.expand_rows, "expand_rows_plain", (cols, cum, 8), {}),
             (expand_kernel.expand_rows_streamed, "expand_rows_plain", (cols, cum, 8), {}),
+            (expand_kernel.expand_elements, "expand_elements_plain",
+             (cols.repeat(3, 1), cum, 8, CONFIG.grid_width), {"streamed": True}),
         ]),
         "keygen": (keygen_kernel, [
             (keygen_kernel.project_gaussians, "project_gaussians_plain",
              (_table(dev), *_camera_args(), CONFIG, 64), {}),
-            (keygen_kernel.decode_slots, "decode_slots_plain",
-             (torch.zeros((6, E), dtype=torch.int32).to(dev), _i64(0, dev), CONFIG.grid_width),
-             {}),
         ]),
         "compact": (compact_kernel, [
             (compact_kernel.compact_runs, "compact_runs_plain",
@@ -166,7 +165,7 @@ def test_meta_tensors_raise():
                                          CONFIG, tile_base=0, **carry),
         lambda: expand_kernel._launch("expand_rows", *_calls("expand", "meta")[1][0][2]),
         lambda: keygen_kernel._launch_project(*_calls("keygen", "meta")[1][0][2]),
-        lambda: keygen_kernel._launch_decode(*_calls("keygen", "meta")[1][1][2]),
+        lambda: expand_kernel._launch_elements("expand_rows", *_calls("expand", "meta")[1][2][2]),
     ]
     entries = [lambda e=entry, a=args, k=kwargs: e(*a, **k)
                for module in ("expand", "keygen", "compact", "sort", "bitonic", "blend")

@@ -1,14 +1,14 @@
-// keygen's per-gaussian pass with its offset scan (K7) and slot decode (K8)
-// — InitSortList.
+// keygen's per-gaussian pass with its offset scan (K7) — InitSortList.
 //
-// Not TPU kernels: these replace the part of the JAX package's
+// Not a TPU kernel: it replaces the part of the JAX package's
 // vk3dgaussiansplatting_tpu/ops/keygen.py:126 generate_sort_elements that
 // XLA compiles into fused device loops inside jax.jit (with
 // render/project.py and ops/prefilter.py:gaussian_keep_mask, and the scan
-// of the counts, keygen.py:192), and its per-slot decode after the
-// expansion (keygen.py:203-262).  Their plain versions are
-// ops/cuda/keygen_kernel.py: project_gaussians_plain, the float32 torch
-// code that writes XLA's arithmetic out op by op, and decode_slots_plain.
+// of the counts, keygen.py:192).  Its plain version is
+// ops/cuda/keygen_kernel.py:project_gaussians_plain, the float32 torch
+// code that writes XLA's arithmetic out op by op.  The per-slot decode
+// after the expansion (keygen.py:203-262) is the expansion's own store
+// phase (csrc/expand.cu, vk3d_expand_elements).
 //
 // K7 keygen_project, a block of kProjectThreads (64) consecutive
 // gaussians, one thread each: the view transform, NDC and the near/NDC cull;
@@ -63,10 +63,6 @@
 // range; cum, the column rows and the colour are one coalesced
 // store a thread already.  Opacity is one coalesced 4-byte load a thread.
 //
-// K8 decode_slots, one thread per slot: K1's [6, E] columns and the total
-// -> the (tile, depth, index) int64 columns of SortElements, SENTINEL at and
-// past min(total, E), and the clamped count.
-//
 // Arithmetic.  The integer outputs must equal the plain version's bit for
 // bit, and through it the JAX package's, so every float op is the one XLA
 // emits: __fmaf_rn exactly where project.py calls _fma (XLA's contracted
@@ -101,9 +97,6 @@
 // persistent blocks that stage their next partition while looking back all
 // ran slower: each makes a partition's AGGREGATE or INCLUSIVE word come
 // later than its successors need it.
-// K8 reads 24 B and writes 24 B a slot (0.68 GB at E = 14.19M, 0.20 ms);
-// its tile division is 32-bit wherever the slot's offset in its gaussian
-// fits.
 
 #include <atomic>
 #include <cmath>
@@ -112,7 +105,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // K8's and the counts mode's block
+constexpr int kThreads = 256;  // the counts mode's block
 constexpr int kCountBlocks = 2048;  // the counts mode's most blocks (one atomicAdd each)
 // K7's partition (gaussians, one thread each) and its register target.
 constexpr int kProjectThreads = 64;
@@ -121,7 +114,6 @@ constexpr int kWarps = kProjectThreads / 32;
 constexpr int kShCoeffs = 16;
 constexpr int kShFloats = kShCoeffs * 3;
 constexpr int kShChunks = kShFloats / 4;  // 16-byte chunks of an SH row
-constexpr int64_t kSentinel = 0xFFFFFFFFll;  // core/config.py SENTINEL
 
 // Look-back status words: flag in bits 62-63, the sum below.
 constexpr int kStatusSumBits = 62;
@@ -650,37 +642,6 @@ __global__ void __launch_bounds__(kThreads) keygen_count_kernel(const Buffers b,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-decode_slots_kernel(const int32_t* __restrict__ cols, int64_t e,
-                    const int64_t* __restrict__ total, int64_t grid_w,
-                    int64_t* __restrict__ tile, int64_t* __restrict__ depth,
-                    int64_t* __restrict__ index, int64_t* __restrict__ count) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t t = *total;
-  const int64_t live = t < e ? t : e;
-  if (j == 0) *count = live;
-  if (j >= e) return;
-  if (j >= live) {
-    tile[j] = kSentinel;
-    depth[j] = kSentinel;
-    index[j] = kSentinel;
-    return;
-  }
-  const int64_t local = j - cols[e + j];
-  const int64_t gw = cols[2 * e + j] > 1 ? cols[2 * e + j] : 1;
-  int64_t ly;
-  if (local >= 0 && local <= 0xFFFFFFFFll) {
-    ly = static_cast<uint32_t>(local) / static_cast<uint32_t>(gw);
-  } else {  // floor division, as torch.div(rounding_mode="floor")
-    ly = local / gw;
-    if (local % gw != 0 && local < 0) --ly;
-  }
-  const int64_t lx = local - ly * gw;
-  tile[j] = (cols[4 * e + j] + ly) * grid_w + (cols[3 * e + j] + lx);
-  depth[j] = static_cast<int64_t>(static_cast<uint32_t>(cols[5 * e + j]));
-  index[j] = cols[j];
-}
-
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // K7's shared memory: a carveout asking for the most shared memory, so that
@@ -790,22 +751,5 @@ extern "C" int vk3d_keygen_project(const void* position, const void* scale, cons
   if ((err = prefer_shared(device)) != cudaSuccess) return static_cast<int>(err);
   keygen_project_kernel<<<static_cast<unsigned int>(words - 1), kProjectThreads, kFullSmem, s>>>(
       b, p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// cols: K1's [6, e] int32 columns; total: its [] int64 unclamped total.
-// count ([] int64) is written even when e == 0.
-extern "C" int vk3d_decode_slots(const void* cols, int64_t e, const void* total, int64_t grid_w,
-                                 void* tile, void* depth, void* index, void* count,
-                                 int32_t device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (e < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = e > 0 ? (e + kThreads - 1) / kThreads : 1;
-  decode_slots_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cols), e, static_cast<const int64_t*>(total), grid_w,
-      static_cast<int64_t*>(tile), static_cast<int64_t*>(depth), static_cast<int64_t*>(index),
-      static_cast<int64_t*>(count));
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,9 +20,9 @@ entry point: it appends the device index and the device's current stream,
 raises on the CUDA error the entry point returns, and counts the launch in
 `LAUNCHES`, one `collections.Counter` keyed by kernel:
 
-  expand_rows, expand_rows_streamed     K1, K1' (one kernel, two callers)
+  expand_rows, expand_rows_streamed     K1, K1' (one kernel, two callers;
+                                        keygen's decode variant included)
   keygen_project, keygen_count          K7, full and counts mode
-  decode_slots                          K8
   blend_tiles, blend_flat, blend_strip  K2, K3, K4
   compact_slabs, compact_runs           K5
   compact_segments                      K6
@@ -72,6 +72,11 @@ _F32 = ctypes.c_float
 SIGNATURES = {
     # cols, ncols, cum, n, capacity, part, nblocks, out, device, stream
     "vk3d_expand_rows": ([_P, _I32, _P, _I64, _I64, _P, _I64, _P, _I32, _P], ctypes.c_int),
+    # cols, cum, n, capacity, grid_w, part, nblocks, tile, depth, index,
+    # count, device, stream
+    "vk3d_expand_elements": (
+        [_P, _P, _I64, _I64, _I64, _P, _I64, _P, _P, _P, _P, _I32, _P], ctypes.c_int,
+    ),
     # screen_pos, cov_inv, color_alpha, index, ranges, num_tiles, grid_w,
     # width, height, alpha_cutoff, transmittance_stop, out, device, stream
     "vk3d_blend_tiles": (
@@ -124,8 +129,6 @@ SIGNATURES = {
     # cov2d, cov_inv, screen_pos, scratch, scratch_words, device, stream
     "vk3d_keygen_project": ([_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _P,
                              _P, _P, _P, _P, _I64, _I32, _P], ctypes.c_int),
-    # cols, e, total, grid_w, tile, depth, index, count, device, stream
-    "vk3d_decode_slots": ([_P, _I64, _P, _I64, _P, _P, _P, _P, _I32, _P], ctypes.c_int),
     "vk3d_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

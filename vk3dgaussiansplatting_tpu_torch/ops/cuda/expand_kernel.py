@@ -12,17 +12,25 @@ current stream.  Both read the inclusive int64 scan of the counts, `cum`,
 where the TPU functions take the counts: keygen passes the scan K7 wrote
 (`Projection.cum`), and another caller scans with `torch.cumsum`.
 
-Each wrapper launches the CUDA kernel for CUDA tensors and runs
-`expand_rows_plain` for CPU tensors (`_build.on_card`); it never falls back
-from one to the other.  `_build.LAUNCHES` counts K1's launches as
-"expand_rows" and K1''s as "expand_rows_streamed".
+keygen expands through `expand_elements`: the kernel's decode variant, which
+stores the sort elements (tile, depth, index, count) where the rows variant
+stores the rows, so the per-slot decode (JAX keygen.py:203-262) costs no
+kernel and no read of the rows of its own.  Its plain version is
+`decode_slots_plain` over `expand_rows_plain`.
+
+Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
+version for CPU tensors (`_build.on_card`); it never falls back from one to
+the other.  `_build.LAUNCHES` counts K1's launches as "expand_rows" and
+K1''s as "expand_rows_streamed", in either variant.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...core.config import SENTINEL
 from . import _build
+from .keygen_kernel import NUM_COLS
 
 MAX_COLS = 7
 # Merged items (row ends and slots) per block of csrc/expand.cu (kItems).
@@ -87,8 +95,81 @@ def expand_rows(cols: torch.Tensor, cum: torch.Tensor, capacity: int):
 
 
 def expand_rows_streamed(cols: torch.Tensor, cum: torch.Tensor, capacity: int):
-    """K1', keygen's expansion under the depth prefilter: `expand_rows`'s
+    """K1', the expansion under the depth prefilter: `expand_rows`'s
     arguments and result, counted as "expand_rows_streamed"."""
     if _build.on_card(cols, cum):
         return _launch("expand_rows_streamed", cols, cum, capacity)
     return expand_rows_plain(cols, cum, capacity)
+
+
+def _check_elements(cols: torch.Tensor, cum: torch.Tensor) -> None:
+    _check(cols, cum)
+    if cols.shape[0] != NUM_COLS:
+        raise ValueError(f"cols must be keygen's [{NUM_COLS}, N] rows, got {tuple(cols.shape)}")
+
+
+def decode_slots_plain(cols: torch.Tensor, total: torch.Tensor, grid_width: int):
+    """The per-slot decode: (tile, depth, index, count), the int64 columns of
+    SortElements (SENTINEL at and past the count) and the count, from the
+    expansion's [6, E] columns and its unclamped total."""
+    capacity = cols.shape[1]
+    cols = cols.to(torch.int64)
+    slot = torch.arange(capacity, device=cols.device, dtype=torch.int64)
+    count = torch.clamp(total, max=capacity)
+    live = slot < count
+    local = slot - cols[1]
+    gw_safe = cols[2].clamp(min=1)  # dead slots hold zero rows
+    ly = torch.div(local, gw_safe, rounding_mode="floor")
+    lx = local - ly * gw_safe
+    tile_key = (cols[4] + ly) * grid_width + (cols[3] + lx)
+    return (torch.where(live, tile_key, SENTINEL),
+            torch.where(live, cols[5] & 0xFFFFFFFF, SENTINEL),
+            torch.where(live, cols[0], SENTINEL),
+            count)
+
+
+def expand_elements_plain(cols: torch.Tensor, cum: torch.Tensor, capacity: int,
+                          grid_width: int):
+    """`expand_elements`'s plain version: `decode_slots_plain` over
+    `expand_rows_plain`."""
+    _check_elements(cols, cum)
+    return decode_slots_plain(*expand_rows_plain(cols, cum, capacity), grid_width)
+
+
+def _launch_elements(name: str, cols: torch.Tensor, cum: torch.Tensor, capacity: int,
+                     grid_width: int):
+    dev = _build.card_device(cols, cum)
+    _check_elements(cols, cum)
+    cols, cum = cols.contiguous(), cum.contiguous()
+    tile, depth, index = (torch.empty(capacity, dtype=torch.int64, device=dev) for _ in range(3))
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    nblocks = -(-(cols.shape[1] + capacity) // ITEMS_PER_BLOCK)
+    part = torch.empty(nblocks + 1, dtype=torch.int64, device=dev)
+    _build.launch(name, "vk3d_expand_elements", cols.data_ptr(), cum.data_ptr(), cols.shape[1],
+                  capacity, grid_width, part.data_ptr(), nblocks, tile.data_ptr(),
+                  depth.data_ptr(), index.data_ptr(), count.data_ptr(), device=dev)
+    return tile, depth, index, count
+
+
+def expand_elements(cols: torch.Tensor, cum: torch.Tensor, capacity: int, grid_width: int, *,
+                    streamed: bool = False):
+    """keygen's expansion: K7's rows expanded over `capacity` slots and
+    decoded into the sort elements in the same launch.
+
+    Args:
+      cols: [6, N] int32 rows (`Projection.cols`: id, offset, max(w, 1),
+        min_x, min_y, the depth key's bits).
+      cum: [N] int64 inclusive scan of the counts (`Projection.cum`).
+      capacity: slot capacity E.
+      grid_width: tiles a row of the tile grid.
+      streamed: K1' (under the depth prefilter), counted as
+        "expand_rows_streamed"; else K1, counted as "expand_rows".
+
+    Returns (tile, depth, index, count): [E] int64 each, SENTINEL past
+    min(total, E), and the [] int64 count min(total, E).  CPU tensors run
+    `expand_elements_plain`.
+    """
+    if _build.on_card(cols, cum):
+        return _launch_elements("expand_rows_streamed" if streamed else "expand_rows", cols, cum,
+                                capacity, grid_width)
+    return expand_elements_plain(cols, cum, capacity, grid_width)

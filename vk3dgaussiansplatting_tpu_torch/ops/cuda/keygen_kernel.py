@@ -1,27 +1,27 @@
-"""keygen's per-gaussian pass with its offset scan (K7) and slot decode
-(K8) — wrappers of csrc/keygen.cu.
+"""keygen's per-gaussian pass with its offset scan (K7) — the wrapper of
+csrc/keygen.cu.
 
-Neither replaces a TPU kernel: they replace the part of the JAX package's
+It replaces no TPU kernel: it replaces the part of the JAX package's
 `ops/keygen.py:126 generate_sort_elements` that XLA compiles into fused
 device loops under `jax.jit` (the view transform and cull, the depth key,
 the EWA covariance, the tile extents, the SH16 colour, the inverse
-covariance, the prefilter's keep mask and the scan of the counts), and the
-per-slot decode that turns the expansion's columns into the sort elements.
+covariance, the prefilter's keep mask and the scan of the counts).  The
+per-slot decode that turns the expansion into the sort elements is the
+expansion's own store (`expand_kernel.expand_elements`).
 
 `project_gaussians` launches K7 for CUDA tensors and runs
-`project_gaussians_plain` for CPU tensors (`_build.on_card`);
-`decode_slots` launches K8 or runs `decode_slots_plain` the same way.
-Neither falls back from one to the other: a failed build, launch or
-shared-memory opt-in raises, and the launchers raise `ValueError` for a
-tensor that is not on a CUDA device.
-The plain versions are the torch code that writes XLA's float32 arithmetic
+`project_gaussians_plain` for CPU tensors (`_build.on_card`).  It never
+falls back from one to the other: a failed build, launch or shared-memory
+opt-in raises, and the launcher raises `ValueError` for a tensor that is
+not on a CUDA device.
+The plain version is the torch code that writes XLA's float32 arithmetic
 out op by op (`render/project.py`) and scans with `torch.cumsum`; K7
 computes the same expressions with the same rounding (csrc/keygen.cu,
 "Arithmetic") and the scan by decoupled look-back in the same launch, so a
-card keygen pass is K7, K1's partition search and expansion, and K8, with
-no PyTorch kernel between them.  `_build.LAUNCHES` counts K7's full
-launches as "keygen_project", its counts-only launches
-(`count_live_elements`) as "keygen_count" and K8's as "decode_slots".
+card keygen pass is K7 and K1's partition search and expansion, with no
+PyTorch kernel between them.  `_build.LAUNCHES` counts K7's full launches
+as "keygen_project" and its counts-only launches (`count_live_elements`)
+as "keygen_count".
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...core.config import SENTINEL, RenderConfig, SphericalHarmonicsMode
+from ...core.config import RenderConfig, SphericalHarmonicsMode
 from ...render import project
 from .. import prefilter
 from . import _build
@@ -296,57 +296,6 @@ def project_gaussians(table, view, proj, cam_pos, config: RenderConfig, capacity
     _check(table, thr_dilated, config)
     return project_gaussians_plain(table, view, proj, cam_pos, config, capacity, thr_dilated,
                                    with_aux=with_aux)
-
-
-def _check_decode(cols: torch.Tensor, total: torch.Tensor) -> None:
-    if cols.dim() != 2 or cols.shape[0] != NUM_COLS or cols.dtype != torch.int32:
-        raise ValueError(f"cols must be [{NUM_COLS}, E] int32, got {tuple(cols.shape)} "
-                         f"{cols.dtype}")
-    if total.dim() != 0 or total.dtype != torch.int64:
-        raise ValueError("total must be a [] int64 tensor")
-
-
-def decode_slots_plain(cols: torch.Tensor, total: torch.Tensor, grid_width: int):
-    """K8's plain version: (tile, depth, index, count), the int64 columns of
-    SortElements (SENTINEL at and past the count) and the count, from the
-    expansion's [6, E] columns and its unclamped total."""
-    capacity = cols.shape[1]
-    cols = cols.to(torch.int64)
-    slot = torch.arange(capacity, device=cols.device, dtype=torch.int64)
-    count = torch.clamp(total, max=capacity)
-    live = slot < count
-    local = slot - cols[1]
-    gw_safe = cols[2].clamp(min=1)  # dead slots hold zero rows
-    ly = torch.div(local, gw_safe, rounding_mode="floor")
-    lx = local - ly * gw_safe
-    tile_key = (cols[4] + ly) * grid_width + (cols[3] + lx)
-    return (torch.where(live, tile_key, SENTINEL),
-            torch.where(live, cols[5] & 0xFFFFFFFF, SENTINEL),
-            torch.where(live, cols[0], SENTINEL),
-            count)
-
-
-def _launch_decode(cols: torch.Tensor, total: torch.Tensor, grid_width: int):
-    dev = _build.card_device(cols, total)
-    _check_decode(cols, total)
-    cols = cols.contiguous()
-    e = cols.shape[1]
-    tile, depth, index = (torch.empty(e, dtype=torch.int64, device=dev) for _ in range(3))
-    count = torch.empty((), dtype=torch.int64, device=dev)
-    _build.launch("decode_slots", "vk3d_decode_slots", cols.data_ptr(), e, total.data_ptr(),
-                  grid_width, tile.data_ptr(), depth.data_ptr(), index.data_ptr(),
-                  count.data_ptr(), device=dev)
-    return tile, depth, index, count
-
-
-def decode_slots(cols: torch.Tensor, total: torch.Tensor, grid_width: int):
-    """The sort elements from the expansion (K8): `decode_slots_plain`'s
-    arguments and result.  CUDA tensors launch K8 (counted as
-    "decode_slots"), CPU tensors run the plain version."""
-    if _build.on_card(cols, total):
-        return _launch_decode(cols, total, grid_width)
-    _check_decode(cols, total)
-    return decode_slots_plain(cols, total, grid_width)
 
 
 FLOAT_FIELDS = ("color_alpha", "cov2d", "cov_inv", "screen_pos")

@@ -21,12 +21,14 @@ is int32 and would wrap past 2^31 elements.
 
 Where it runs: on the card the per-gaussian pass and the scan are one
 kernel, K7 (`cuda/keygen_kernel.project_gaussians`, csrc/keygen.cu: the
-offset row, the inclusive scan `cum` and the total), then K1 or K1' expands
-the rows over K7's `cum`, and K8 (`decode_slots`) turns the slots into the
-sort elements, with no PyTorch kernel between them.  On CPU tensors the
-same wrappers run their plain versions (`project_gaussians_plain`, the
-float32 torch code of render/project.py with `torch.cumsum`, and
-`decode_slots_plain`).
+offset row, the inclusive scan `cum` and the total), then K1 or K1'
+(`cuda/expand_kernel.expand_elements`, csrc/expand.cu) expands the rows
+over K7's `cum` and, in its store phase, decodes each slot into its sort
+element: the elements are written once and the rows never reach device
+memory.  No PyTorch kernel runs between the two.  On CPU tensors the same
+wrappers run their plain versions (`project_gaussians_plain`, the float32
+torch code of render/project.py with `torch.cumsum`, and
+`decode_slots_plain` over `expand_rows_plain`).
 Nothing on the card falls back to a plain version: a failed build or
 launch raises.
 """
@@ -100,10 +102,10 @@ def generate_sort_elements(
 ):
     """Full InitSortList pass over the gaussian table.
 
-    The expansion is the plain version for `expansion_method="repeat"`, K1
-    (`expand_rows`), or K1' (`expand_rows_streamed`) for "stream" and, under
-    a `depth_thr`, for "pallas" and "auto" (the JAX dispatch,
-    keygen.py:217-238).
+    The expansion and decode are the plain version for
+    `expansion_method="repeat"`, else `expand_elements`: K1, or K1' for
+    "stream" and, under a `depth_thr`, for "pallas" and "auto" (the JAX
+    dispatch, keygen.py:217-238).
 
     Args:
       table: GaussianTable of tensors on one device.
@@ -115,8 +117,8 @@ def generate_sort_elements(
         (ops/prefilter.py): gaussians provably behind every touched tile's
         threshold emit no elements.  None, or an all-SENTINEL map, gives the
         unfiltered list bit for bit.
-      timer: optional utils.timing.CudaPassTimer; times the expansion as
-        "expand".
+      timer: optional utils.timing.CudaPassTimer; times the expansion and
+        decode as "expand".
 
     Returns (SortElements, GaussianFrameData).
     """
@@ -127,12 +129,12 @@ def generate_sort_elements(
     method = config.expansion_method
     with section(timer, "expand"):
         if method == "repeat":
-            cols, total = expand_kernel.expand_rows_plain(p.cols, p.cum, capacity)
-        elif method == "stream" or depth_thr is not None:
-            cols, total = expand_kernel.expand_rows_streamed(p.cols, p.cum, capacity)
+            out = expand_kernel.expand_elements_plain(p.cols, p.cum, capacity, config.grid_width)
         else:
-            cols, total = expand_kernel.expand_rows(p.cols, p.cum, capacity)
+            out = expand_kernel.expand_elements(
+                p.cols, p.cum, capacity, config.grid_width,
+                streamed=method == "stream" or depth_thr is not None)
 
-    elements = SortElements(*keygen_kernel.decode_slots(cols, total, config.grid_width))
+    elements = SortElements(*out)
     frame = GaussianFrameData(p.color_alpha, p.cov2d, p.cov_inv, p.screen_pos)
     return elements, frame
