@@ -9,7 +9,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
   device   the card's name, and name + power limit from nvidia-smi
   build    the CUDA kernels compiled from csrc/, one nvcc per source, all
            started together (seconds, ptxas report); K7, K1 and the radix
-           sort's kernels without a spill or a stack, or the run fails;
+           sort's ten kernels (the depth order's prep and scan included)
+           without a spill or a stack, or the run fails;
            csrc/radix.cu's constants (vk3d_radix_config) equal to
            radix_kernel's copies
   fixture  the fixture scenes on the card (kernels) against the CPU (plain
@@ -31,17 +32,20 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            1280x720, capacity 4,245,663), scale calibrated to 3,487,911 live
            elements ±3% (K7's counts mode); 3 warm-up + 20 timed frames with
            the camera nudged each frame; median ms/frame and per-pass ms from
-           CUDA events; K7, K1, the radix sort and K2 launch once a
-           frame, the radix sort's kernels (LAUNCHES["radix_kernels"]) are its
-           planned_kernels a sort, no feature table is built, and the
+           CUDA events; K7, the depth order, K1, the radix sort and K2
+           launch once a frame, the radix kernels (LAUNCHES["radix_kernels"])
+           are the tile key's planned_kernels a sort and
+           DEPTH_ORDER_KERNELS a depth order, no feature table is built, and the
            warm-up frames call no torch.sort or argsort (a
            TorchFunctionMode counts them); one more frame under
-           torch.profiler: its keygen pass is K7 and K1's partition and
-           expansion kernels in a row, no other device op between
-           them (`check_keygen_pass`; so on the capped, CLI and
-           distributed paths)
+           torch.profiler: its keygen pass is K7, the depth order's memset,
+           prep, four scatters and scan, and K1's partition and expansion
+           kernels in a row, no other device op between them
+           (`check_keygen_pass`; so on the capped and CLI paths; the
+           distributed path has no depth order)
   check    on that scene's last frame: keygen/sort/ranges on the card ==
-           on the CPU bit for bit; K1 (`expand_elements`, the expansion
+           on the CPU bit for bit, the depth-first way == the index order
+           on the full key; K1 (`expand_elements`, the expansion
            that stores the sort elements) == its plain version
            (decode_slots_plain over expand_rows_plain) bit for bit on
            the frame's own rows, its time, plain time and bound (the
@@ -69,7 +73,14 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            24 B a slot written), the passes' floor (`radix_floor_bytes`:
            ~193 B a live slot at 6 passes) and the copy yardstick (copy_ of
            the live slots' [3, n] uint32 records: what one pass must move,
-           at the card's attainable rate).  The scatter's phases come from
+           at the card's attainable rate).  The depth order
+           (`check_depth_order`) on the frame's own K7 rows and scan five
+           times (equal results) and against its plain version bit for
+           bit, its input unchanged; its time, the plain version's, the
+           stable torch.sort of the depth keys (library_ms), its kernels by
+           kind (prep, scatter, scan), the bound (36 B a row and 20 B a
+           kept row) and the passes' floor (`depth_order_floor_bytes`).
+           The scatter's phases come from
            `radix_phases`, run by hand (an instrumented build of radix.cu):
            per pass the µs of each step a partition, the look-back's
            length, staged_ahead_share, stage_wait_us and
@@ -300,6 +311,8 @@ COUNTERS = (
     "compact_runs", "compact_segments", "blend_strip", "bitonic_sort", "keygen_project",
     # K7 in its counts mode (count_live_elements): the steady switch's probe.
     "keygen_count", "radix_sort",
+    # keygen's rows put in depth order (the radix path's keygen, once a frame).
+    "depth_order",
 )
 
 
@@ -317,22 +330,26 @@ def read_kernels() -> dict:
             "radix_sort": LAUNCHES["radix_kernels"]}
 
 
-def call_plan(call) -> tuple[int, bool]:
-    """(num_tiles, counted) of a captured radix_sort call."""
-    (_tile, _depth, _index, count, num_tiles), _kw = call
-    return num_tiles, count is not None
+def call_plan(call) -> tuple[int, bool, str]:
+    """(num_tiles, counted, key) of a captured radix_sort call."""
+    (_tile, _depth, _index, count, num_tiles), kw = call
+    return num_tiles, count is not None, kw.get("key", "tile_depth")
 
 
-def check_radix_kernels(what: str, plan: tuple[int, bool], sorts: int, kernels: int) -> float:
-    """The radix sort's kernels on a path, `kernels` over `sorts` launches,
-    against its plan (radix_kernel.planned_kernels for `plan`, the
-    num_tiles and whether a count bounds the sort).  Returns the kernels a
-    sort."""
+def check_radix_kernels(what: str, plan: tuple[int, bool, str], sorts: int, kernels: int,
+                        depth_orders: int = 0) -> float:
+    """The radix kernels on a path, `kernels` over `sorts` sorts and
+    `depth_orders` row orders, against the plan (radix_kernel.planned_kernels
+    for `plan`, the num_tiles, whether a count bounds the sort and its key;
+    radix_kernel.DEPTH_ORDER_KERNELS a row order).  Returns the sort's
+    kernels a sort."""
     planned = radix_kernel.planned_kernels(*plan)
-    if not sorts or kernels != sorts * planned:
-        raise RuntimeError(f"{what}: {sorts} radix sorts launched {kernels} kernels, "
-                           f"not {planned} a sort")
-    return kernels / sorts
+    rows = depth_orders * radix_kernel.DEPTH_ORDER_KERNELS
+    if not sorts or kernels != sorts * planned + rows:
+        raise RuntimeError(f"{what}: {sorts} radix sorts and {depth_orders} depth orders "
+                           f"launched {kernels} kernels, not {planned} a sort and "
+                           f"{radix_kernel.DEPTH_ORDER_KERNELS} a depth order")
+    return (kernels - rows) / sorts
 
 
 def log(msg: str) -> None:
@@ -440,6 +457,7 @@ class Capture:
         (bitonic_ops, "sort_elements_bitonic"),
         (keygen_kernel, "project_gaussians"),
         (radix_kernel, "radix_sort"),
+        (radix_kernel, "depth_order"),
     )
 
     def __init__(self):
@@ -694,26 +712,33 @@ def short_op(name: str) -> str:
 
 
 # A card keygen pass, device op by device op after K7's full launch (its
-# scratch memset comes just before it).
+# scratch memset comes just before it); on the radix path the rows' depth
+# order (its scratch memset, the prep, a scatter a depth digit, the scan)
+# comes between K7 and K1.
 KEYGEN_PASS = ("partition_kernel", "expand_rows_kernel")
+DEPTH_ORDER_PASS = ("Memset", "radix_rows_prep_kernel",
+                    *["radix_scatter_kernel"] * radix_kernel.DEPTH_PASSES,
+                    "radix_rows_scan_kernel")
 
 
-def check_keygen_pass(ops: list[str], what: str) -> list[str]:
+def check_keygen_pass(ops: list[str], what: str, depth_order: bool = False) -> list[str]:
     """Every full K7 launch among `ops` (a profiled window's device ops) is
     followed at once by K1's partition kernel and K1's expansion, which
-    stores the sort elements: no PyTorch kernel, memset or copy between
-    them.  Raises otherwise, or if the window holds no full K7 launch;
-    returns the last pass's ops, from the one before K7 to K1's expansion."""
+    stores the sort elements, or with `depth_order` by the rows' depth
+    order and then K1: no PyTorch kernel, memset or copy between them.
+    Raises otherwise, or if the window holds no full K7 launch; returns the
+    last pass's ops, from the one before K7 to K1's expansion."""
+    want = (DEPTH_ORDER_PASS if depth_order else ()) + KEYGEN_PASS
     full = [j for j, op in enumerate(ops) if "keygen_project_kernel" in op]
     if not full:
         raise RuntimeError(f"{what}: the profiler saw no full K7 launch in "
                            f"{[short_op(x) for x in ops]}")
     for j in full:
-        after = [short_op(x) for x in ops[j + 1: j + 1 + len(KEYGEN_PASS)]]
-        if [re.sub(r"<.*", "", x) for x in after] != list(KEYGEN_PASS):
-            raise RuntimeError(f"{what}: K7 is followed by {after}, not {list(KEYGEN_PASS)}")
+        after = [short_op(x) for x in ops[j + 1: j + 1 + len(want)]]
+        if [re.sub(r"<.*| .*", "", x) for x in after] != list(want):
+            raise RuntimeError(f"{what}: K7 is followed by {after}, not {list(want)}")
     j = full[-1]
-    return [short_op(x) for x in ops[max(j - 1, 0): j + 1 + len(KEYGEN_PASS)]]
+    return [short_op(x) for x in ops[max(j - 1, 0): j + 1 + len(want)]]
 
 
 def check_image(img: torch.Tensor, config: RenderConfig, what: str) -> None:
@@ -758,8 +783,9 @@ def phase_fixtures() -> None:
 
 
 # The kernels the uncapped frame launches once each; the bitonic path's.
-UNCAPPED_PATH = ("keygen_project", "expand_rows", "radix_sort", "blend_tiles")
-BITONIC_PATH = tuple(k for k in UNCAPPED_PATH if k != "radix_sort") + ("bitonic_sort",)
+UNCAPPED_PATH = ("keygen_project", "depth_order", "expand_rows", "radix_sort", "blend_tiles")
+BITONIC_PATH = tuple(k for k in UNCAPPED_PATH
+                     if k not in ("depth_order", "radix_sort")) + ("bitonic_sort",)
 
 
 class SortCalls(torch.overrides.TorchFunctionMode):
@@ -809,10 +835,11 @@ def run_scene(name: str):
     counts = read_counts()
     launches = {k: v for k, v in counts.items() if k in UNCAPPED_PATH}
     radix_kernels = check_radix_kernels(name, call_plan(cap.args["radix_sort"]),
-                                        counts["radix_sort"], read_kernels()["radix_sort"])
+                                        counts["radix_sort"], read_kernels()["radix_sort"],
+                                        counts["depth_order"])
     if any(v != drawn for v in launches.values()):
-        raise RuntimeError(f"{name}: K7, K1, the radix sort and K2 must launch once a frame, "
-                           f"{drawn} frames: {launches}")
+        raise RuntimeError(f"{name}: K7, the depth order, K1, the radix sort and K2 must launch "
+                           f"once a frame, {drawn} frames: {launches}")
     if sorts.calls:
         raise RuntimeError(f"{name}: {sorts.calls} torch.sort/argsort calls in "
                            f"{WARMUP_FRAMES} uncapped frames")
@@ -825,7 +852,8 @@ def run_scene(name: str):
     if int(out.num_elements) <= 0:
         raise RuntimeError(f"{name}: no live elements")
     # One more frame at the last camera, under the profiler.
-    keygen_pass = check_keygen_pass(device_ops(lambda: renderer.draw(cam)), name)
+    keygen_pass = check_keygen_pass(device_ops(lambda: renderer.draw(cam)), name,
+                                    depth_order=True)
     log(f"scene {name}: {table.num_gaussians} gaussians, capacity "
         f"{renderer.capacity}, scale x{mult:.4f} -> {live} live (target {target}, "
         f"calibrated in {calib_s:.1f} s); last frame {int(out.num_elements)} elements; "
@@ -840,23 +868,30 @@ def run_scene(name: str):
 
 
 def check_elements_vs_cpu(renderer: Renderer, cam: Camera) -> None:
-    """keygen + sort + ranges of the last frame: card == CPU, bit for bit."""
+    """keygen + sort + ranges of the last frame, the frame's way (rows in
+    depth order, the tile key) and in index order on the full key: card ==
+    CPU, bit for bit, and the two ways equal."""
     view, proj = cam.matrices()
     results = []
-    for table in (renderer.table, renderer.table.to("cpu")):
-        el, _ = keygen.generate_sort_elements(
-            table, view, proj, cam.position, renderer.config, renderer.capacity,
-        )
-        el = sort.sort_elements(el, renderer.config)
-        results.append((el, ranges.find_ranges(el, renderer.config.num_tiles)))
-    (ge, gr), (ce, cr) = results
-    bad = {k: int((getattr(ge, k).cpu() != getattr(ce, k)).sum())
-           for k in ("tile", "depth", "index")}
-    bad["ranges"] = int((gr.cpu() != cr).sum())
-    bad["count"] = int(ge.count) - int(ce.count)
-    if any(bad.values()):
-        raise RuntimeError(f"card vs CPU element mismatch: {bad}")
-    log(f"check: keygen/sort/ranges card == CPU bit for bit ({int(ce.count)} elements)")
+    for depth_first in (True, False):
+        for table in (renderer.table, renderer.table.to("cpu")):
+            el, _ = keygen.generate_sort_elements(
+                table, view, proj, cam.position, renderer.config, renderer.capacity,
+                depth_order=depth_first,
+            )
+            el = sort.sort_elements(el, renderer.config, depth_ordered=depth_first)
+            results.append((el, ranges.find_ranges(el, renderer.config.num_tiles)))
+    (ge, gr), *others = results
+    for what, (ce, cr) in zip(("CPU", "index order on the card", "index order on the CPU"),
+                              others):
+        bad = {k: int((getattr(ge, k).cpu() != getattr(ce, k).cpu()).sum())
+               for k in ("tile", "depth", "index")}
+        bad["ranges"] = int((gr.cpu() != cr.cpu()).sum())
+        bad["count"] = int(ge.count) - int(ce.count)
+        if any(bad.values()):
+            raise RuntimeError(f"card's depth-first frame vs {what}: element mismatch {bad}")
+    log(f"check: keygen/sort/ranges card == CPU bit for bit, depth first == index order "
+        f"({int(ge.count)} elements)")
 
 
 def check_expand_edge_cases() -> None:
@@ -911,33 +946,32 @@ def check_expand_edge_cases() -> None:
         f"12,000-slot gaussian, 1.1M zero counts, E % 4 != 0, total > E, N = 0)")
 
 
-def torch_sort_elements(el, num_tiles: int, with_perm: bool = False):
-    """The stable int64-key torch.sort that the AUTO sort replaced: the
-    radix sort's library yardstick (library_ms) and a reference here; no
-    module of the port calls it."""
+def torch_sort_elements(el, num_tiles: int, with_perm: bool = False, key: str = "tile_depth"):
+    """The stable int64-key torch.sort that the AUTO sort replaced (on the
+    tile alone for the "tile" key): the radix sort's library yardstick
+    (library_ms) and a reference here; no module of the port calls it."""
     tile = torch.where(el.tile == SENTINEL, num_tiles, el.tile)
-    key, perm = torch.sort((tile << 32) | el.depth, stable=True)
-    t = key >> 32
-    out = keygen.SortElements(torch.where(t == num_tiles, SENTINEL, t), key & 0xFFFFFFFF,
-                              el.index[perm], el.count)
+    _, perm = torch.sort(tile if key == "tile" else (tile << 32) | el.depth, stable=True)
+    out = keygen.SortElements(el.tile[perm], el.depth[perm], el.index[perm], el.count)
     return (out, perm) if with_perm else out
 
 
-def radix_floor_bytes(n: int, e: int, num_tiles: int, counted: bool, with_perm: bool) -> int:
+def radix_floor_bytes(n: int, e: int, num_tiles: int, counted: bool, with_perm: bool,
+                      key: str = "tile_depth") -> int:
     """The bytes csrc/radix.cu's kernels move for n sorted slots of e: the
     setup reads and writes the tail's three columns (and its permutation);
-    the histogram reads the int64 depth and tile of the prefix once and
-    zeroes the status words (passes x partitions x 256 x 4 B); a scatter
-    reads and writes the 12-byte records (the first reads the int64
-    columns, the index only without the permutation; the last writes the
-    int64 columns and the permutation, whose index it gathers), and each
-    live partition writes its 256 status words twice and reads 1 KB of its
-    predecessor's and the 1 KB digit table."""
-    passes = len(radix_kernel.schedule(num_tiles))
+    the histogram reads the int64 depth (the full key) and tile of the
+    prefix once and zeroes the status words (passes x partitions x 256 x 4
+    B); a scatter reads and writes the 12-byte records (the first reads the
+    int64 columns, the index only without the permutation; the last writes
+    the int64 columns and the permutation, whose index it gathers), and
+    each live partition writes its 256 status words twice and reads 1 KB of
+    its predecessor's and the 1 KB digit table."""
+    passes = len(radix_kernel.schedule(num_tiles, key))
     parts, live_parts = -(-e // radix_kernel.TILE), -(-n // radix_kernel.TILE)
     tail = (48 + 8 * with_perm) * (e - n) if counted else 0
-    hist = 16 * n + 4 * radix_kernel.BINS * passes * parts
-    scatter = ((16 if with_perm else 24) + 12) * n + 24 * n * (passes - 2) + 36 * n
+    hist = (8 if key == "tile" else 16) * n + 4 * radix_kernel.BINS * passes * parts
+    scatter = (16 if with_perm else 24) * n + 24 * n * (passes - 1) + 24 * n
     lookback = 4 * 4 * radix_kernel.BINS * passes * live_parts
     return tail + hist + scatter + 16 * n * with_perm + lookback
 
@@ -962,18 +996,22 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
     times, its floor and bound, and the copy yardstick."""
     (tile, depth, index, count, num_tiles), kw = call
     with_perm = kw.get("with_perm", False)
+    key = kw.get("key", "tile_depth")
     el = keygen.SortElements(tile, depth, index, count)
     before = [x.clone() for x in el[:3]]
     kernels = LAUNCHES["radix_kernels"]
-    got = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
+    got = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm,
+                                  key=key)
     kernels = check_radix_kernels(what, call_plan(call), 1, LAUNCHES["radix_kernels"] - kernels)
     for k in range(1, RADIX_REPEATS):
-        again = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
+        again = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm,
+                                        key=key)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise RuntimeError(f"{what}: radix_sort run {k} differs from run 0 on the same list")
     del again
-    refs = {"plain version": sort.sort_elements_radix_plain(el, num_tiles, with_perm=with_perm),
-            "stable torch.sort": torch_sort_elements(el, num_tiles, with_perm)}
+    refs = {"plain version": sort.sort_elements_radix_plain(el, num_tiles, with_perm=with_perm,
+                                                            key=key),
+            "stable torch.sort": torch_sort_elements(el, num_tiles, with_perm, key)}
     for ref_name, ref in refs.items():
         ref_cols = [*ref[0][:3], ref[1]] if with_perm else list(ref[:3])
         for col, a, b in zip(("tile", "depth", "index", "permutation"), got, ref_cols):
@@ -987,34 +1025,37 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
         raise RuntimeError(f"{what}: radix_sort wrote its input")
     e = tile.shape[0]
     n = e if count is None else min(max(int(count), 0), e)
-    res = {"max_abs_err": err, "e": e, "live": n, "with_perm": with_perm}
+    res = {"max_abs_err": err, "e": e, "live": n, "with_perm": with_perm, "key": key}
     if not timed:
         return res
     del refs, plain, plain_cols, got
-    passes = len(radix_kernel.schedule(num_tiles))
+    passes = len(radix_kernel.schedule(num_tiles, key))
 
     def run():
-        return radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
+        return radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm,
+                                       key=key)
 
     res.update({
         "ms": cuda_ms(run, 20),
         "plain_ms": cuda_ms(lambda: sort.sort_elements_radix_plain(el, num_tiles,
-                                                                   with_perm=with_perm), 1),
-        "library_ms": cuda_ms(lambda: torch_sort_elements(el, num_tiles, with_perm), 10),
+                                                                   with_perm=with_perm, key=key),
+                            1),
+        "library_ms": cuda_ms(lambda: torch_sort_elements(el, num_tiles, with_perm, key), 10),
         "device_ms": device_kinds(run, {"setup": r"radix_setup", "histogram": r"radix_histogram",
                                         "scatter": r"radix_scatter"}),
         "digit_passes": passes,
         # The function: 24 B a live slot read, 24 B a slot written (and the
         # permutation's 8), the count.
         **bound(24 * n + (32 if with_perm else 24) * e + 8, 0),
-        "passes_floor_ms": radix_floor_bytes(n, e, num_tiles, count is not None, with_perm)
+        "passes_floor_ms": radix_floor_bytes(n, e, num_tiles, count is not None, with_perm, key)
         / PEAK_BYTES_PER_S * 1e3,
         "copy_ms": copy_yardstick_ms(n),
     })
     scatter = res["device_ms"].get("scatter", {}).get("ms", float("nan"))
     res["scatter_pass_ms"] = scatter / passes
     log(f"check {what} radix: radix_sort x{RADIX_REPEATS} equal, == plain == stable torch.sort "
-        f"bit for bit ({n} sorted of {e} slots, {passes} digit passes, {kernels:g} kernels"
+        f"bit for bit ({n} sorted of {e} slots, key {key}, {passes} digit passes, {kernels:g} "
+        f"kernels"
         f"{', with the permutation' if with_perm else ''}), its input unchanged; kernel "
         f"{res['ms']:.3f} ms vs plain {res['plain_ms']:.3f} ms, torch.sort "
         f"{res['library_ms']:.3f} ms; by kind {res['device_ms']}; bound {res['bound_ms']:.4f} ms "
@@ -1022,6 +1063,74 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
         f"{res['passes_floor_ms']:.4f} ms; yardstick copy_ of [3, {n}] uint32 "
         f"{res['copy_ms']:.4f} ms, a scatter pass {res['scatter_pass_ms']:.4f} ms "
         f"({res['copy_ms'] / res['scatter_pass_ms']:.0%} of the copy's rate)")
+    return res
+
+
+def depth_order_floor_bytes(n: int, m: int) -> int:
+    """The bytes csrc/radix.cu's depth order moves for n rows, m of them
+    kept: the prep reads max(w, 1), min_x, min_y, the depth bits and the
+    scan (24 B a row), writes the kept rows' 12-byte records and zeroes the
+    status words; four scatters read and write the records (the last writes
+    six int32 columns, 24 B a kept row); the scan reads the kept counts and
+    writes the int64 scan and the offsets (12 B a row); each live partition
+    of a pass writes its 256 status words twice and reads 1 KB of its
+    predecessor's and the 1 KB digit table."""
+    passes = radix_kernel.DEPTH_PASSES
+    parts, live_parts = -(-n // radix_kernel.TILE), -(-m // radix_kernel.TILE)
+    row_parts = -(-n // radix_kernel.ROW_TILE)
+    prep = 24 * n + 12 * m + 4 * radix_kernel.BINS * passes * parts + 8 * row_parts
+    scatter = 12 * m * passes + 12 * m * (passes - 1) + 24 * m
+    scan = 4 * m + 12 * n
+    lookback = 4 * 4 * radix_kernel.BINS * passes * live_parts
+    return prep + scatter + scan + lookback
+
+
+def check_depth_order(call, what: str) -> dict:
+    """keygen's row order (`radix_kernel.depth_order`) on the frame's own K7
+    rows and scan, RADIX_REPEATS times with equal results, against its
+    plain version bit for bit (the kept rows' columns, every offset, the
+    scan), its input unchanged; its time, the plain version's, the stable
+    torch.sort of the rows' depth keys (library_ms), its kernels by kind,
+    its bound (the rows' four columns and the scan read, 24 B a row; the
+    offsets and the scan written, 12 B a row, and the kept rows' five other
+    columns, 20 B) and its passes' floor (`depth_order_floor_bytes`)."""
+    (cols, cum, capacity, grid_w, grid_h), _kw = call
+    before = (cols.clone(), cum.clone())
+
+    def run():
+        return radix_kernel.depth_order(cols, cum, capacity, grid_w, grid_h)
+
+    got = run()
+    end = cum.clamp(max=capacity)
+    m = int((counts_of(end) > 0).sum())
+    for k in range(1, RADIX_REPEATS):
+        again = run()
+        if not (torch.equal(again[1], got[1]) and torch.equal(again[0][:, :m], got[0][:, :m])
+                and torch.equal(again[0][1], got[0][1])):
+            raise RuntimeError(f"{what}: depth_order run {k} differs from run 0 on the same rows")
+    want = radix_kernel.depth_order_plain(cols, cum, capacity)
+    if not (torch.equal(got[1], want[1]) and torch.equal(got[0][:, :m], want[0][:, :m])
+            and torch.equal(got[0][1], want[0][1])):
+        raise RuntimeError(f"{what}: depth_order differs from its plain version")
+    if not (torch.equal(before[0], cols) and torch.equal(before[1], cum)):
+        raise RuntimeError(f"{what}: depth_order wrote its input")
+    n = cols.shape[1]
+    keys = cols[5].to(torch.int64) & 0xFFFFFFFF
+    res = {
+        "max_abs_err": 0, "rows": n, "kept_rows": m, "capacity": capacity,
+        "ms": cuda_ms(run, 20),
+        "plain_ms": cuda_ms(lambda: radix_kernel.depth_order_plain(cols, cum, capacity), 1),
+        "library_ms": cuda_ms(lambda: torch.sort(keys, stable=True), 10),
+        "device_ms": device_kinds(run, {"prep": r"rows_prep", "scatter": r"radix_scatter",
+                                        "scan": r"rows_scan"}),
+        **bound(36 * n + 20 * m, 0),
+        "passes_floor_ms": depth_order_floor_bytes(n, m) / PEAK_BYTES_PER_S * 1e3,
+    }
+    log(f"check {what} depth order: x{RADIX_REPEATS} equal, == plain bit for bit ({m} kept of "
+        f"{n} rows, capacity {capacity}), its input unchanged; kernel {res['ms']:.3f} ms vs plain "
+        f"{res['plain_ms']:.3f} ms, torch.sort of the depth keys {res['library_ms']:.3f} ms; by "
+        f"kind {res['device_ms']}; bound {res['bound_ms']:.4f} ms ({res['bound_bytes']} B), the "
+        f"passes' floor {res['passes_floor_ms']:.4f} ms")
     return res
 
 
@@ -1049,22 +1158,25 @@ def radix_phases(call, what: str) -> list[dict]:
     equal the port's kernel's."""
     (tile, depth, index, count, num_tiles), kw = call
     with_perm = kw.get("with_perm", False)
+    key = kw.get("key", "tile_depth")
     lib = ctypes.CDLL(str(_build.build(("-DVK3D_RADIX_PHASES=1",), stems=("radix",))))
     lib.vk3d_radix_sort.argtypes, lib.vk3d_radix_sort.restype = _build.SIGNATURES["vk3d_radix_sort"]
     lib.vk3d_radix_phases.argtypes, lib.vk3d_radix_phases.restype = [ctypes.c_void_p], ctypes.c_int
     e = tile.shape[0]
     out = [torch.empty_like(tile) for _ in range(3 + with_perm)]
-    scratch = torch.empty(radix_kernel.scratch_words(e, num_tiles), dtype=torch.int32,
+    scratch = torch.empty(radix_kernel.scratch_words(e, num_tiles, key), dtype=torch.int32,
                           device=tile.device)
     launched = ctypes.c_int64(0)
     err = lib.vk3d_radix_sort(
         tile.data_ptr(), depth.data_ptr(), index.data_ptr(),
-        None if count is None else count.data_ptr(), e, num_tiles, scratch.data_ptr(),
+        None if count is None else count.data_ptr(), e, num_tiles, radix_kernel.SORT_KEYS[key],
+        scratch.data_ptr(),
         *(x.data_ptr() for x in out[:3]), out[3].data_ptr() if with_perm else None,
         ctypes.byref(launched), tile.device.index, torch.cuda.current_stream().cuda_stream)
     if err:
         raise _build.cuda_error(err, "radix_sort (phases build)")
-    want = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm)
+    want = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm,
+                                   key=key)
     if not all(torch.equal(a, b) for a, b in zip(out, want)):
         raise RuntimeError(f"{what}: the phases build of the radix sort differs from the kernel")
     stamps = np.zeros((radix_kernel.MAX_PASSES, 4096, RADIX_PHASE_SLOTS), np.uint64)
@@ -1074,7 +1186,7 @@ def radix_phases(call, what: str) -> list[dict]:
     n = e if count is None else min(max(int(count), 0), e)
     parts = min(-(-n // radix_kernel.TILE), 4096)
     rows = []
-    for q in range(len(radix_kernel.schedule(num_tiles))):
+    for q in range(len(radix_kernel.schedule(num_tiles, key))):
         b = stamps[q, :parts].astype(np.int64)
         ns = b[:, 9] - b[:, 0]
         per_ns = (b[:, 8] - b[:, 1]).sum() / ns.sum()
@@ -1166,13 +1278,14 @@ def check_radix_edge_cases() -> None:
 
 
 def check_radix_ptxas() -> list[str]:
-    """ptxas on the radix sort's kernels (the setup, the histogram, three
-    scatter instantiations): no spills and no stack, or the run fails; and
-    the kernel's constants against the wrapper's copies."""
+    """ptxas on the radix sort's kernels (the setup, the histogram of each
+    key, five scatter instantiations, the rows' prep and scan): no spills
+    and no stack, or the run fails; and the kernel's constants against the
+    wrapper's copies."""
     config = radix_kernel.check_kernel_config()
     entries = [" ".join(x) for x in ptxas_report() if x[0].startswith("radix_")]
-    if len(entries) != 5:
-        raise RuntimeError(f"ptxas reported {len(entries)} radix kernels, not 5: {entries}")
+    if len(entries) != 10:
+        raise RuntimeError(f"ptxas reported {len(entries)} radix kernels, not 10: {entries}")
     for entry in entries:
         if re.search(r"[1-9]\d* bytes (stack frame|spill)", entry):
             raise RuntimeError(f"radix kernel spills or uses a stack: {entry}")
@@ -1469,7 +1582,7 @@ def run_bitonic(name: str, mult: float):
                      LAUNCHES["bitonic_global_stages"] / drawn)
     if (any(v != drawn for v in path.values()) or kernels["bitonic_sort"] != drawn * planned
             or global_passes != (len(planned_global), sum(planned_global))
-            or launches["radix_sort"] or kernels["radix_sort"]):
+            or launches["radix_sort"] or launches["depth_order"] or kernels["radix_sort"]):
         raise RuntimeError(f"{name} bitonic: {drawn} frames launched {path}, kernels {kernels} "
                            f"({planned} a bitonic sort planned), global passes and stages a sort "
                            f"{global_passes} (planned {planned_global}), radix_sort "
@@ -1656,7 +1769,7 @@ def run_capped(name: str, mult: float):
         if chained and plan.mode != "steady":
             raise RuntimeError(f"{name}: the steady switch was not taken")
         syncs, sync_lines = count_syncs(lambda: [draw() for _ in range(SYNC_FRAMES)])
-        keygen_pass = check_keygen_pass(device_ops(draw), f"{name} capped")
+        keygen_pass = check_keygen_pass(device_ops(draw), f"{name} capped", depth_order=True)
         for k in capped_ops.PATH_COUNTS:
             capped_ops.PATH_COUNTS[k] = 0
         timer = CudaPassTimer()
@@ -1674,16 +1787,20 @@ def run_capped(name: str, mult: float):
     launches = read_counts()
     per_frame = {k: (launches[k] - before[k]) / frames for k in launches}
     check_radix_kernels(f"{name} capped", call_plan(cap.args["radix_sort"]),
-                        launches["radix_sort"], read_kernels()["radix_sort"])
+                        launches["radix_sort"], read_kernels()["radix_sort"],
+                        launches["depth_order"])
     tables = cap.counts.get("pack_feature_table", 0)
     if tables:
         raise RuntimeError(f"{name} capped: the capped frames built {tables} feature tables")
-    path_kernels = ["keygen_project", "expand_rows", "radix_sort", "blend_flat", "compact_slabs"]
+    path_kernels = ["keygen_project", "depth_order", "expand_rows", "radix_sort", "blend_flat",
+                    "compact_slabs"]
     if chained:
         path_kernels += ["expand_rows_streamed", "keygen_count"]
-    if min(launches[k] for k in path_kernels) == 0 or per_frame["radix_sort"] != 1:
+    if (min(launches[k] for k in path_kernels) == 0 or per_frame["radix_sort"] != 1
+            or per_frame["depth_order"] != 1):
         raise RuntimeError(f"{name} capped: a kernel of the path was not launched, or the radix "
-                           f"sort not once a timed frame: {launches}, per timed frame {per_frame}")
+                           f"sort and the depth order not once a timed frame: {launches}, per "
+                           f"timed frame {per_frame}")
     if sorts.calls:
         raise RuntimeError(f"{name} capped: {sorts.calls} torch.sort/argsort calls in {warm} "
                            f"warm-up frames")
@@ -1974,8 +2091,12 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
                 events.append((start, end))
         torch.cuda.synchronize()
     launches = read_counts()
+    # The received lists keep the index order and the full key: no depth order.
     radix_kernels = check_radix_kernels(f"rank {rank}", call_plan(cap.args["radix_sort"]),
-                                        launches["radix_sort"], read_kernels()["radix_sort"])
+                                        launches["radix_sort"], read_kernels()["radix_sort"],
+                                        launches["depth_order"])
+    if launches["depth_order"]:
+        raise RuntimeError(f"rank {rank}: the distributed frame put its rows in depth order")
     # One more frame at the last camera on every rank, under the profiler.
     keygen_pass = check_keygen_pass(
         device_ops(lambda: frame(shard, view, proj, cam.position)), f"rank {rank}")
@@ -2180,13 +2301,15 @@ def phase_app(mult: float) -> dict:
                 "--frames", str(APP_FRAMES), "--out", png])))
             rc = rcs[0]
             cli_s = time.perf_counter() - t0
-            keygen_pass = check_keygen_pass(cli_ops, "app CLI")
+            keygen_pass = check_keygen_pass(cli_ops, "app CLI", depth_order=True)
             launches = read_counts()
             if rc != 0 or any(launches[k] != APP_FRAMES for k in UNCAPPED_PATH):
                 raise RuntimeError(f"app: the CLI returned {rc}, launches {launches}")
-            # The CLI's uncapped frame sorts the count's prefix.
-            check_radix_kernels("app", (RenderConfig(width=width, height=height).num_tiles, True),
-                                launches["radix_sort"], read_kernels()["radix_sort"])
+            # The CLI's uncapped frame sorts the count's prefix on the tile key.
+            check_radix_kernels("app", (RenderConfig(width=width, height=height).num_tiles, True,
+                                        "tile"),
+                                launches["radix_sort"], read_kernels()["radix_sort"],
+                                launches["depth_order"])
             got = image_io.read_png(png)
 
             # The CLI again with the bitonic tier: the same PNG.
@@ -2279,8 +2402,12 @@ META = {
     # Also the distributed frame's 3-key sort, parallel/dist.py:195 _sort3.
     "radix_sort": ("vk3dgaussiansplatting_tpu_torch/csrc/radix.cu",
                    "vk3dgaussiansplatting_tpu/ops/sort.py:37"),
+    # The frame's sort's depth key, settled per gaussian before the
+    # expansion (the radix path's keygen).
+    "depth_order": ("vk3dgaussiansplatting_tpu_torch/csrc/radix.cu",
+                    "vk3dgaussiansplatting_tpu/ops/sort.py:37"),
 }
-NOT_TPU_KERNELS = ("bitonic_sort", "keygen_project", "radix_sort")
+NOT_TPU_KERNELS = ("bitonic_sort", "keygen_project", "radix_sort", "depth_order")
 
 
 def main() -> None:
@@ -2307,6 +2434,7 @@ def main() -> None:
             args, name, [m for m in SphericalHarmonicsMode if m != renderer.config.sh_mode]
             if i == 0 else ()))
         results[name]["radix_sort"] = check_radix(args["radix_sort"], name)
+        results[name]["depth_order"] = check_depth_order(args["depth_order"], name)
         # The kernels a sort that the uncapped frames launched.
         results[name]["radix_sort"]["kernels_per_sort"] = radix_kernels
         for k, v in scene_launches.items():
@@ -2323,7 +2451,7 @@ def main() -> None:
         renderer, cam, cap, out, path_launches, capped_frame = run_capped(name, mults[name])
         per_frame["capped_steady" if renderer._plan is not None else "capped_temporal"] = capped_frame
         for k in ("keygen_project", "keygen_count", "expand_rows", "expand_rows_streamed",
-                  "radix_sort", "blend_flat", "compact_slabs"):
+                  "radix_sort", "depth_order", "blend_flat", "compact_slabs"):
             launches[k] += path_launches[k]
         results[name].update(check_capped(renderer, cam, cap, out, name))
         if renderer._plan is not None:
@@ -2381,6 +2509,9 @@ def main() -> None:
         if k == "radix_sort":
             entry.update(kernels_per_sort=res["kernels_per_sort"], device_ms=res["device_ms"],
                          copy_ms=res["copy_ms"], scatter_pass_ms=res["scatter_pass_ms"])
+        if k == "depth_order":
+            entry.update(device_ms=res["device_ms"], kept_rows=res["kept_rows"],
+                         passes_floor_ms=res["passes_floor_ms"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,427 @@
+"""The frame's radix path in two sorts (ops/sort.py `depth_first`): keygen's
+rows put in the stable order of their depth keys before the expansion
+(`radix_kernel.depth_order`, between K7 and K1), then a stable sort of the
+elements on the tile alone (the "tile" key).
+
+On the CPU (the plain versions): the sorted list and its ranges against
+the JAX package's `sort_elements_xla(generate_sort_elements(...))` bit for
+bit, on a 720p and a 1080p grid, a power-of-two tile count, gaussians with
+equal depth keys sharing tiles, many rows with no slot, a total above the
+capacity (a gaussian straddling it) and the prefilter's thresholds; the
+depth-ordered expansion against JAX's index-order list stably reordered by
+depth; the row order against a numpy model on crafted rows; the keys'
+schedules; which frame paths take the depth order.  On the card (`cuda`
+marker, skipped without one): the row order and the tile-key sort bit for
+bit with their plain versions at garden's and train7k's sizes, the
+launches a frame on each path, and no spill or stack in ptxas's report of
+the radix kernels.
+"""
+
+import dataclasses
+import math
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_prefilter import CONFIG as PREFILTER_CONFIG
+from test_torch_prefilter import thresholds, walled_scene
+from vk3dgaussiansplatting_tpu.core.config import RenderConfig, SortAlgorithm
+from vk3dgaussiansplatting_tpu.ops import keygen as jkg
+from vk3dgaussiansplatting_tpu.ops import ranges as jranges
+from vk3dgaussiansplatting_tpu.ops import sort as jsort
+from vk3dgaussiansplatting_tpu.render.camera import Camera
+from vk3dgaussiansplatting_tpu.scenes import synthetic as jsyn
+from vk3dgaussiansplatting_tpu_torch import Renderer, convert
+from vk3dgaussiansplatting_tpu_torch import RenderConfig as TorchConfig
+from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL
+from vk3dgaussiansplatting_tpu_torch.core.config import SortAlgorithm as TorchSort
+from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
+from vk3dgaussiansplatting_tpu_torch.ops import ranges as tranges
+from vk3dgaussiansplatting_tpu_torch.ops import sort as tsort
+from vk3dgaussiansplatting_tpu_torch.ops.cuda import _build
+from vk3dgaussiansplatting_tpu_torch.ops.cuda import radix_kernel as rk
+from vk3dgaussiansplatting_tpu_torch.parallel import dist as td
+from vk3dgaussiansplatting_tpu_torch.scenes import synthetic
+
+torch.set_num_threads(1)
+
+_jax_keygen = jax.jit(jkg.generate_sort_elements, static_argnames=("config", "capacity"))
+_jax_sort = jax.jit(jsort.sort_elements_xla, static_argnames=("num_tiles",))
+_jax_ranges = jax.jit(jranges.find_ranges, static_argnames=("num_tiles",))
+
+CLOUD_POSE = ((0.0, 0.0, 2.0), (math.pi, 0.0))
+# A pose at the cloud's edge, looking across it.
+EDGE_POSE = ((1.0, 0.5, -3.0), (0.2, 0.1))
+CASES = ["720p", "1080p", "pow2_tiles", "equal_depths", "zero_counts", "over_capacity",
+         "prefilter"]
+
+
+def _cloud(n=2048, mult=3.0, copies=0):
+    """The keygen tests' procedural cloud, its scales times `mult`; with
+    `copies`, its first 200 gaussians repeated `copies` times at the end
+    (equal positions and extents: equal depth keys in shared tiles)."""
+    table = jsyn.procedural_cloud_table(n, seed=11)
+    table = dataclasses.replace(table, scale=table.scale * np.float32(mult))
+    if copies:
+        table = jax.tree.map(lambda a: np.concatenate([a] + [a[:200]] * copies), table)
+        rng = np.random.default_rng(5)  # the copies differ in colour and opacity only
+        table = dataclasses.replace(
+            table, opacity=rng.uniform(0.2, 0.9, table.opacity.shape).astype(np.float32))
+    return table
+
+
+def _case(name):
+    """(JAX table, camera, JAX config, depth_thr or None, capacity rule)."""
+    config = RenderConfig(width=1280, height=720, sort_algorithm=SortAlgorithm.XLA_SORT,
+                          expansion_method="repeat")
+    pose, thr, table, capacity = CLOUD_POSE, None, None, "fits"
+    if name == "1080p":
+        config = dataclasses.replace(config, width=1920, height=1080)
+    elif name == "pow2_tiles":  # 32 x 32 tiles: tile' needs an 11th bit
+        config = dataclasses.replace(config, width=512, height=512)
+    elif name == "equal_depths":
+        table = _cloud(copies=3)
+    elif name == "zero_counts":
+        pose = EDGE_POSE
+    elif name == "over_capacity":
+        capacity = "half"
+    elif name == "prefilter":  # 16 x 16 tiles
+        config = dataclasses.replace(PREFILTER_CONFIG, expansion_method="repeat")
+        table, thr = walled_scene(), thresholds(PREFILTER_CONFIG, seed=1)
+        pose = ((0.3, -0.2, 2.5), (3.0, -0.2))
+    cam = Camera(config.aspect)
+    cam.set_position(pose[0])
+    cam.set_rotation(*pose[1])
+    return (_cloud() if table is None else table), cam, config, thr, capacity
+
+
+def _lists(name):
+    """JAX's index-order list and its sort, and the port's depth-ordered
+    list and its tile-key sort, on one case; plus the live total."""
+    table, cam, config, thr, rule = _case(name)
+    view, proj = cam.matrices()
+    tt, tcfg = convert.table_from_jax(table), convert.config_from_jax(config)
+    tthr = None if thr is None else torch.from_numpy(thr.astype(np.int64))
+    total = int(tkg.count_live_elements(tt, view, proj, cam.position, tcfg, depth_thr=tthr))
+    capacity = total // 2 + 3 if rule == "half" else total + 1001
+    assert tsort.depth_first(tcfg)
+    jargs = (jax.tree.map(jnp.asarray, table), jnp.asarray(view), jnp.asarray(proj),
+             jnp.asarray(cam.position))
+    je, _ = _jax_keygen(*jargs, config, capacity,
+                        depth_thr=None if thr is None else jnp.asarray(thr))
+    te, _ = tkg.generate_sort_elements(tt, view, proj, cam.position,
+                                       dataclasses.replace(tcfg, expansion_method="auto"),
+                                       capacity, tthr, depth_order=True)
+    return je, te, config, total, capacity
+
+
+def _np(x):
+    return np.asarray(x).astype(np.int64)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_depth_first_sort_matches_jax(name):
+    """The tile-key sort of the depth-ordered list, and its ranges, equal
+    JAX's sorted list and ranges bit for bit."""
+    je, te, config, total, capacity = _lists(name)
+    num_tiles = config.num_tiles
+    js = _jax_sort(je, num_tiles=num_tiles)
+    ts = tsort.sort_elements(te, convert.config_from_jax(config), depth_ordered=True)
+    for col in ("tile", "depth", "index"):
+        np.testing.assert_array_equal(getattr(ts, col).numpy(), _np(getattr(js, col)), col)
+    assert int(ts.count) == int(js.count) == min(total, capacity) > 0
+    np.testing.assert_array_equal(tranges.find_ranges(ts, num_tiles).numpy(),
+                                  _np(_jax_ranges(js, num_tiles=num_tiles)))
+    if name == "over_capacity":
+        assert total > capacity
+    if name == "equal_depths":  # ties in (tile, depth) are frequent and resolved by id
+        t, d = ts.tile[: int(ts.count)], ts.depth[: int(ts.count)]
+        assert int(((t[1:] == t[:-1]) & (d[1:] == d[:-1])).sum()) > 100
+
+
+@pytest.mark.parametrize("name", ["720p", "equal_depths", "zero_counts", "over_capacity",
+                                  "prefilter"])
+def test_depth_ordered_expansion_is_index_order_by_depth(name):
+    """The depth-ordered expansion holds JAX's index-order list stably
+    reordered by depth: the same elements, in (depth, id, row-major tile)
+    order, with the same SENTINEL tail and count."""
+    je, te, _config, _total, _capacity = _lists(name)
+    n = int(je.count)
+    assert int(te.count) == n
+    order = np.argsort(_np(je.depth)[:n], kind="stable")
+    for col in ("tile", "depth", "index"):
+        want = _np(getattr(je, col))
+        want[:n] = want[:n][order]
+        np.testing.assert_array_equal(getattr(te, col).numpy(), want, col)
+
+
+def _rows(rng, n, counts, capacity, depth):
+    """K7-like rows: counts w * h with max(w, 1), min_x, min_y inside a
+    120 x 68 grid, the depth bits as int32, and their inclusive scan."""
+    w = rng.integers(1, 9, n)
+    h = np.where(counts > 0, counts // np.maximum(w, 1), 0)
+    counts = w * h
+    cum = np.cumsum(counts)
+    cols = np.stack([np.arange(n), np.minimum(cum - counts, capacity), w,
+                     rng.integers(0, 121, n), rng.integers(0, 69, n),
+                     depth.astype(np.uint32).view(np.int32)]).astype(np.int32)
+    return torch.from_numpy(cols), torch.from_numpy(cum.astype(np.int64))
+
+
+def _row_order_model(cols, cum, capacity):
+    """The rows that keep a slot in np's stable argsort of their uint32
+    depth keys; their kept counts."""
+    end = np.minimum(cum.numpy(), capacity)
+    kept = end - np.concatenate([[0], end[:-1]])
+    rows = np.flatnonzero(kept > 0)
+    depth = cols[5].numpy().view(np.uint32)
+    rows = rows[np.argsort(depth[rows], kind="stable")]
+    return rows, kept[rows]
+
+
+@pytest.mark.parametrize("case", ["random", "zeros_and_straddle", "equal_depths", "all_dropped"])
+def test_depth_order_rows_match_numpy_model(case):
+    """`depth_order` on crafted rows (its plain version on the CPU): the
+    kept rows first in the stable order of their depth keys (top bits set
+    in the int32 column included), each with its columns, the exclusive
+    scan of the kept counts as its offset and their inclusive scan; the
+    rows past them keep nothing."""
+    rng = np.random.default_rng(["random", "zeros_and_straddle", "equal_depths",
+                                 "all_dropped"].index(case))
+    n = 3 * rk.TILE + 17
+    counts = rng.integers(1, 40, n)
+    depth = rng.integers(0, 2**32, n)
+    capacity = 10**9
+    if case == "zeros_and_straddle":
+        counts[rng.random(n) < 0.6] = 0
+        capacity = int(counts.sum() * 0.7)
+    elif case == "equal_depths":
+        depth = rng.integers(0, 3, n) * 0x7FFFFFFF
+    elif case == "all_dropped":
+        capacity = 0
+    cols, cum = _rows(rng, n, counts, capacity, depth)
+    got_cols, got_cum = rk.depth_order(cols, cum, capacity, 120, 68)
+    rows, kept = _row_order_model(cols, cum, capacity)
+    m = rows.shape[0]
+    scan = np.cumsum(kept)
+    total = int(scan[-1]) if m else 0
+    assert total == min(int(cum[-1]), capacity)
+    np.testing.assert_array_equal(got_cum.numpy(), np.concatenate([scan, np.full(n - m, total)]))
+    want = cols.numpy()[:, rows].copy()
+    want[1] = scan - kept
+    np.testing.assert_array_equal(got_cols.numpy()[:, :m], want)
+    assert (got_cols[1, m:] == total).all()
+    if case == "zeros_and_straddle":  # one row keeps part of its count
+        full = cum.numpy() - np.concatenate([[0], cum.numpy()[:-1]])
+        assert int((kept < full[rows]).sum()) == 1
+
+
+def test_key_schedules():
+    """The tile key: bit_length(num_tiles) bits, 2 passes at 720p and
+    1080p, 1 at 64 tiles; the full key 6; the rows' depth key 4."""
+    assert rk.schedule(8160, "tile") == [("tile", 0, 8), ("tile", 8, 5)]
+    assert rk.schedule(3600, "tile") == [("tile", 0, 8), ("tile", 8, 4)]
+    assert rk.schedule(64, "tile") == [("tile", 0, 7)]
+    assert len(rk.schedule(8160)) == 6
+    assert rk.schedule(0, "depth") == [("depth", s, 8) for s in (0, 8, 16, 24)]
+    assert rk.planned_kernels(8160, key="tile") == 4
+    assert rk.planned_kernels(8160, counted=False, key="tile") == 3
+    assert rk.scratch_words(rk.TILE + 1, 8160, "tile") == (rk.HEADER_WORDS + 2 * 2 * rk.BINS
+                                                           + 6 * (rk.TILE + 4))
+    assert rk.ROW_TILE == rk.TILE // 2
+    assert rk.depth_order_scratch_words(rk.TILE + 1) == (rk.HEADER_WORDS + 2 * 4
+                                                         + 4 * 2 * rk.BINS + 6 * (rk.TILE + 4))
+    with pytest.raises(ValueError, match="unknown sort key"):
+        rk.schedule(8160, "index")
+
+
+def test_depth_first_follows_the_sort_and_the_grid():
+    """The radix sort takes the depth order up to the packed word's grid;
+    the bitonic sort never does."""
+    for algo, width, height, want in ((TorchSort.AUTO, 1920, 1080, True),
+                                      (TorchSort.XLA_SORT, 1280, 720, True),
+                                      (TorchSort.AUTO, 3840, 2160, True),
+                                      (TorchSort.BITONIC, 1920, 1080, False),
+                                      (TorchSort.AUTO, 8192, 8192, False)):
+        cfg = TorchConfig(width=width, height=height, sort_algorithm=algo)
+        assert tsort.depth_first(cfg) is want, (algo, width, height)
+    with pytest.raises(ValueError, match="packed word"):
+        cols = torch.zeros((6, 4), dtype=torch.int32)
+        rk.depth_order(cols, torch.zeros(4, dtype=torch.int64), 8, 512, 512)
+
+
+@pytest.mark.parametrize("algo", ["auto", "bitonic", "capped"])
+def test_frame_paths_take_the_depth_order(algo, monkeypatch):
+    """A drawn frame calls `depth_order` once and sorts on the tile key on
+    the radix path (uncapped and temporal capped), and neither on the
+    bitonic path."""
+    cfg = TorchConfig(width=64, height=48, capacity_slack_per_tile=16,
+                      sort_algorithm=TorchSort.BITONIC if algo == "bitonic" else TorchSort.AUTO,
+                      capacity_pow_two=True)
+    if algo == "capped":
+        cfg = dataclasses.replace(cfg, blend_depth_cap=384, blend_cap_max=4096)
+    calls = {"depth_order": 0, "keys": []}
+    real_order, real_plain = rk.depth_order, tsort.sort_elements_radix_plain
+
+    def order(*a, **k):
+        calls["depth_order"] += 1
+        return real_order(*a, **k)
+
+    def plain(*a, **k):
+        calls["keys"].append(k.get("key"))
+        return real_plain(*a, **k)
+
+    monkeypatch.setattr(rk, "depth_order", order)
+    monkeypatch.setattr(tsort, "sort_elements_radix_plain", plain)
+    scene = synthetic.SimpleTestGaussiansScene(aspect=cfg.aspect)
+    scene.init()
+    scene.camera.set_aspect(cfg.aspect)
+    r = Renderer(cfg, device="cpu")
+    r.init_for_scene(scene.gaussians())
+    out = r.draw(scene.camera)
+    assert int(out.num_elements) > 0
+    radix = algo != "bitonic"
+    assert calls == {"depth_order": int(radix), "keys": ["tile"] if radix else []}
+
+
+# ---------------------------------------------------------------- the card
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the depth order and the radix sort are CUDA kernels "
+                    "with no CPU mode")
+    rk.check_kernel_config()
+
+
+def _card_rows(rng, n, capacity, zero_share):
+    """K7-like rows on the card at garden's grid (120 x 68 tiles): counts of
+    1-40 tiles (a share zero), random depth keys."""
+    counts = rng.integers(1, 41, n)
+    counts[rng.random(n) < zero_share] = 0
+    cols, cum = _rows(rng, n, counts, capacity, rng.integers(0, 2**32, n))
+    return cols.cuda(), cum.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["garden", "garden_over_capacity", "train7k", "small"])
+def test_depth_order_kernel_matches_plain(case):
+    """The row order's kernels against `depth_order_plain` (on the card),
+    bit for bit on the kept rows' columns, every offset and the scan, at
+    garden's 5,834,784 rows and capacity 14,190,624 (below and above the
+    total), train7k's 559,263 rows, and one partition's rows; five runs
+    equal."""
+    _needs_card()
+    rng = np.random.default_rng(["garden", "garden_over_capacity", "train7k",
+                                 "small"].index(case))
+    n, capacity, zero_share = {"garden": (5_834_784, 14_190_624, 0.7),
+                               "garden_over_capacity": (5_834_784, 14_190_624, 0.2),
+                               "train7k": (559_263, 4_245_663, 0.4),
+                               "small": (rk.TILE - 5, 10**6, 0.3)}[case]
+    cols, cum = _card_rows(rng, n, capacity, zero_share)
+    got = rk.depth_order(cols, cum, capacity, 120, 68)
+    want = rk.depth_order_plain(cols, cum, capacity)
+    end = cum.clamp(max=capacity)
+    m = int((torch.diff(end, prepend=end.new_zeros(1)) > 0).sum())
+    if case == "garden_over_capacity":
+        assert int(cum[-1]) > capacity
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0][:, :m], want[0][:, :m])
+    assert torch.equal(got[0][1], want[0][1])
+    for _ in range(4):
+        again = rk.depth_order(cols, cum, capacity, 120, 68)
+        assert torch.equal(again[1], got[1]) and torch.equal(again[0][:, :m], got[0][:, :m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["garden", "train7k", "64_tiles"])
+def test_tile_key_sort_matches_plain(case):
+    """The tile-key sort against its plain version and the stable
+    torch.sort on the tile, bit for bit: garden's 13,062,311 live of
+    14,190,624 slots at 8,160 tiles, train7k's 3,487,911 of 4,245,663 at
+    3,600, and a one-pass key (64 tiles); with and without the
+    permutation."""
+    _needs_card()
+    num_tiles, e, live = {"garden": (8160, 14_190_624, 13_062_311),
+                          "train7k": (3600, 4_245_663, 3_487_911),
+                          "64_tiles": (64, 300_000, 290_001)}[case]
+    rng = np.random.default_rng(num_tiles)
+    cols = [np.full(e, SENTINEL, np.int64) for _ in range(3)]
+    cols[0][:live] = rng.integers(0, num_tiles, live)
+    cols[1][:live] = np.sort(rng.integers(0, 1 << 32, live))
+    cols[2][:live] = rng.integers(0, 1 << 23, live)
+    el = tkg.SortElements(*(torch.from_numpy(c).cuda() for c in cols),
+                          torch.tensor(live, device="cuda"))
+    for with_perm in (False, True):
+        kernels = _build.LAUNCHES["radix_kernels"]
+        got = rk.radix_sort(*el[:3], el.count, num_tiles, with_perm=with_perm, key="tile")
+        assert _build.LAUNCHES["radix_kernels"] - kernels == rk.planned_kernels(num_tiles,
+                                                                                key="tile")
+        plain = tsort.sort_elements_radix_plain(el, num_tiles, with_perm=with_perm, key="tile")
+        plain_cols = [*plain[0][:3], plain[1]] if with_perm else list(plain[:3])
+        tile = torch.where(el.tile == SENTINEL, num_tiles, el.tile)
+        _, perm = torch.sort(tile, stable=True)
+        stable = [el.tile[perm], el.depth[perm], el.index[perm], perm]
+        for ref in (plain_cols, stable):
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+
+
+def _frame_launches(sort_algorithm):
+    """LAUNCHES of one uncapped frame of a small scene on the card."""
+    cfg = TorchConfig(width=1280, height=720, capacity_slack_per_tile=32,
+                      sort_algorithm=sort_algorithm, capacity_pow_two=True)
+    scene = synthetic.SimpleTestGaussiansScene(aspect=cfg.aspect)
+    scene.init()
+    scene.camera.set_aspect(cfg.aspect)
+    r = Renderer(cfg, device="cuda")
+    r.init_for_scene(scene.gaussians())
+    r.draw(scene.camera)
+    torch.cuda.synchronize()
+    before = _build.LAUNCHES.copy()
+    r.draw(scene.camera)
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}, cfg
+
+
+@pytest.mark.cuda
+def test_launches_a_frame_on_each_path():
+    """The radix path: one depth order, one radix sort on the tile key, and
+    their kernels; the bitonic path: neither; the distributed frame's
+    `_sort3`: the full key's kernels, no depth order."""
+    _needs_card()
+    got, cfg = _frame_launches(TorchSort.AUTO)
+    assert got["depth_order"] == 1 and got["radix_sort"] == 1
+    assert got["radix_kernels"] == (rk.DEPTH_ORDER_KERNELS
+                                    + rk.planned_kernels(cfg.num_tiles, key="tile"))
+    got, _ = _frame_launches(TorchSort.BITONIC)
+    assert not {"depth_order", "radix_sort", "radix_kernels"} & set(got)
+    before = _build.LAUNCHES.copy()
+    live = 50_000
+    t = torch.full((60_000,), SENTINEL, dtype=torch.int64, device="cuda")
+    d, i = t.clone(), t.clone()
+    t[:live] = torch.randint(0, 8160, (live,), device="cuda")
+    d[:live] = torch.randint(0, 2**32, (live,), device="cuda")
+    i[:live] = torch.arange(live, device="cuda")
+    td._sort3(t, d, i, 8160)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["depth_order"] == before["depth_order"]
+    assert (_build.LAUNCHES["radix_kernels"] - before["radix_kernels"]
+            == rk.planned_kernels(8160, counted=False))
+
+
+@pytest.mark.cuda
+def test_radix_kernels_have_no_spill():
+    """ptxas's report of every radix kernel (the scatter's instantiations,
+    the rows' prep and scan included): no spill, no stack."""
+    _needs_card()
+    _build.load_library()
+    report = _build.library_path().with_suffix(".log").read_text()
+    blocks = re.split(r"(?=Compiling entry function)", report)
+    radix = [b for b in blocks if "radix" in b.split("\n")[0]]
+    assert len(radix) >= 8, "the radix kernels are missing from ptxas's report"
+    for b in radix:
+        assert re.search(r"0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", b), b

@@ -105,7 +105,12 @@ def _calls(module, dev):
              (src, _i64([0, 128], dev), 256), {}),
         ]),
         "sort": (sort, [(sort.sort_elements_xla, "sort_elements_radix_plain",
-                         (el, CONFIG.num_tiles), {})]),
+                         (el, CONFIG.num_tiles), {}),
+                        (sort.sort_elements_xla, "sort_elements_radix_plain",
+                         (el, CONFIG.num_tiles), {"key": "tile"})]),
+        "radix": (radix_kernel, [(radix_kernel.depth_order, "depth_order_plain",
+                                  (cols.repeat(3, 1), cum, 8, CONFIG.grid_width,
+                                   CONFIG.grid_height), {})]),
         "bitonic": (bitonic, [(bitonic.sort_elements_bitonic, "sort_elements_bitonic_plain",
                                (el,), {})]),
         "blend": (blend, [
@@ -118,7 +123,8 @@ def _calls(module, dev):
     }[module]
 
 
-@pytest.mark.parametrize("module", ["expand", "keygen", "compact", "sort", "bitonic", "blend"])
+@pytest.mark.parametrize("module", ["expand", "keygen", "compact", "sort", "radix", "bitonic",
+                                    "blend"])
 def test_cpu_tensors_run_the_plain_twin(module, monkeypatch):
     home, calls = _calls(module, "cpu")
 
@@ -166,9 +172,10 @@ def test_meta_tensors_raise():
         lambda: expand_kernel._launch("expand_rows", *_calls("expand", "meta")[1][0][2]),
         lambda: keygen_kernel._launch_project(*_calls("keygen", "meta")[1][0][2]),
         lambda: expand_kernel._launch_elements("expand_rows", *_calls("expand", "meta")[1][2][2]),
+        lambda: radix_kernel._launch_depth_order(*_calls("radix", "meta")[1][0][2]),
     ]
     entries = [lambda e=entry, a=args, k=kwargs: e(*a, **k)
-               for module in ("expand", "keygen", "compact", "sort", "bitonic", "blend")
+               for module in ("expand", "keygen", "compact", "sort", "radix", "bitonic", "blend")
                for entry, _twin, args, kwargs in _calls(module, "meta")[1]]
     for call in card_only + entries:
         with pytest.raises(ValueError, match="unsupported device meta"):

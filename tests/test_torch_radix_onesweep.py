@@ -2,7 +2,7 @@
 pass at the kernel's partition, warp and digit constants, its status
 words, and, on the card, the kernel run repeatedly and back to back.
 
-On the CPU: `ops/sort._counting_pass` against the stable argsort of the
+On the CPU: `radix_kernel.counting_pass` against the stable argsort of the
 digit on crafted digits (all equal, an empty bin, a partial last
 partition) and the plain sort with a live prefix ending inside a
 partition; the plain version against jitted JAX's `sort_elements_xla` at
@@ -97,7 +97,7 @@ def test_counting_pass_crafted(case):
     else:
         # Few bins, long runs: ranks carry across rounds and warps.
         digit = torch.from_numpy(rng.integers(0, 3, n) * 100)
-    dest = tsort._counting_pass(digit)
+    dest = rk.counting_pass(digit)
     assert torch.equal(dest, _stable_dest(digit)), case
 
 

@@ -74,7 +74,7 @@ def test_spans_of_a_draw_nest_under_its_frame(monkeypatch):
     assert sorted(frames) == [0, 1]
     for spans in frames.values():
         parents = {s.name: s.parent for s in spans}
-        assert parents == {"frame": None, "expand": "keygen",
+        assert parents == {"frame": None, "depth_order": "keygen", "expand": "keygen",
                            **{name: "frame" for name in FRAME_PASSES}}
         root = next(s for s in spans if s.name == "frame")
         assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in spans)
@@ -92,7 +92,7 @@ def test_spans_of_a_draw_nest_under_its_frame(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     timer = timing.CudaPassTimer()
     r.draw(scene.camera, timer=timer)
-    assert set(timer.totals()) == {"expand"} | FRAME_PASSES - timing.HOST_ONLY
+    assert set(timer.totals()) == {"depth_order", "expand"} | FRAME_PASSES - timing.HOST_ONLY
     assert timer.spans() == [] and timer.counts() == {}
 
 

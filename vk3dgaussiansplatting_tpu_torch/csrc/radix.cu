@@ -11,14 +11,47 @@
 // (arXiv:2206.01784).  Its plain version is ops/sort.py:
 // sort_elements_radix_plain, the same arithmetic in torch ops.
 //
-// Key.  tile' = num_tiles where tile is SENTINEL, else tile, above the 32
-// depth bits: 32 + bit_length(num_tiles) bits (one more than
-// config.num_tile_bits where num_tiles is a power of two: the mapped
-// SENTINEL needs it), sorted 8 bits a pass from the least significant: 6
-// passes at 720p (44 bits) and 1080p (45).  Every pass is stable, so the
-// order is (tile, depth) with ties in slot order; keygen emits a gaussian's
-// slots in id order, so that is JAX's (tile, depth, id) order.  Tiles must
-// be below num_tiles or SENTINEL, as keygen makes them.
+// Keys.  tile' = num_tiles where tile is SENTINEL, else tile.  The full key
+// (kKeyTileDepth) is tile' above the 32 depth bits: 32 +
+// bit_length(num_tiles) bits (one more than config.num_tile_bits where
+// num_tiles is a power of two: the mapped SENTINEL needs it), sorted 8 bits
+// a pass from the least significant: 6 passes at 720p (44 bits) and 1080p
+// (45).  Every pass is stable, so the order is (tile, depth) with ties in
+// slot order; keygen emits a gaussian's slots in id order, so that is JAX's
+// (tile, depth, id) order.  The tile key (kKeyTile) is tile' alone,
+// bit_length(num_tiles) bits: 2 passes at 720p and 1080p; on a list whose
+// slots are already in (depth, id) order (keygen's expansion of the rows in
+// depth order, below) its stable order is (tile, depth, id) too.  Tiles
+// must be below num_tiles or SENTINEL, as keygen makes them.
+//
+// The rows' depth order (vk3d_radix_depth_order).  keygen's rows (K7's
+// [6, N] int32 columns: id, offset, max(w, 1), min_x, min_y, depth bits, and
+// its inclusive scan `cum` of the counts) are put in the stable order of
+// their 32-bit depth keys, so that K1 expands them into a list already in
+// (depth, id) order and the element sort keys only the tile.  A row keeps
+// min(cum, E) - min(cum - count, E) slots (K7's index-order truncation at
+// the capacity E, InitSortList.comp:143); rows that keep none are dropped.
+// The record is three words: the depth key, the row id, and min_x, min_y,
+// max(w, 1) and h = kept / max(w, 1) packed (bx, by, bx and the rest of the
+// bits, bx = bit_length(grid_w), by = bit_length(grid_h); h all ones marks
+// a row whose kept count is not max(w, 1) h, the one that straddles E,
+// whose count the last pass reads from `cum`).  Kernels:
+//  (c) prep, persistent blocks (two an SM) taking partitions of 4096 rows
+//      by ticket: each row's kept count and record, the kept rows compacted
+//      in id order (a scan of the keep flags with a decoupled look-back over
+//      one status word a partition, read 32 at a time by a warp), the depth
+//      key's four digit counts of the kept rows, the number of kept rows m;
+//      it zeroes the passes' and (e)'s status words;
+//  (b) the scatter above over the m records, four 8-bit digits of the depth
+//      key; the last pass writes the rows in depth order as K1 reads them,
+//      [6, N] int32 (id, kept count, max(w, 1), min_x, min_y, depth bits);
+//  (e) scan, blocks and partitions as (c)'s: the kept counts' inclusive
+//      scan in depth order into the int64 `cum` K1 reads, and their
+//      exclusive scan over the kept counts (the offset column), with the
+//      same look-back; rows at and past m keep 0 slots.
+// So K1 expands exactly the index-order expansion's slots, each gaussian's
+// first kept tiles in row-major order, in (depth, id) order, with the same
+// count min(total, E).
 //
 // Count bound.  The sort covers slots [0, n), n = min(count, E) read from
 // device memory (the host never reads the count).  The setup kernel writes
@@ -32,9 +65,11 @@
 // which hold sentinels between live slots) n = E and there is no setup.
 //
 // Kernels of a sort: the setup (with a count), one histogram kernel, then
-// one scatter kernel a digit: 8 at 720p and 1080p, 7 without a count.
-//  (a) histogram: reads the int64 depth and tile of [0, n) once and counts
-//      every pass's digits in block-private shared bins, added with atomics
+// one scatter kernel a digit: 8 at 720p and 1080p with the full key, 7
+// without a count, 4 with the tile key.
+//  (a) histogram: reads the int64 depth (the full key only) and tile of
+//      [0, n) once and counts every pass's digits in block-private shared
+//      bins, added with atomics
 //      into the [passes][256] global table (sums of counts: the same table
 //      whatever the order).  It also zeroes every pass's look-back status
 //      words (the scratch comes from a caching allocator and holds the last
@@ -93,12 +128,15 @@
 //      current partition: a later partition's look-back seldom waits on it.
 // Records ping-pong between two scratch buffers as three uint32 columns
 // (depth, tile', payload: the id, or the slot when the permutation is
-// asked for), each padded to a multiple of 4 words.  The first scatter
-// reads the int64 columns (maps the SENTINEL tile to num_tiles and makes
-// the slot payload as it stores); the last writes the int64 tile, depth
-// and index (the index gathered by slot when the permutation is asked for)
-// and the int64 permutation.  The tickets decide only which block takes
-// which partition, never an order: the result is deterministic and stable.
+// asked for; for the rows depth, the packed word, the row id), each padded
+// to a multiple of 4 words.  The first scatter of a sort reads the int64
+// columns (maps the SENTINEL tile to num_tiles, as it counts a tile digit
+// and as it stores, and makes the slot payload); the last writes the int64
+// tile, depth and index (the index gathered by slot when the permutation is
+// asked for) and the int64 permutation, or the rows' six int32 columns.
+// The rows' first scatter reads the prep's records like a middle pass.  The
+// tickets decide only which block takes which partition, never an order:
+// the result is deterministic and stable.
 //
 // What bounds it on the H100: bytes.  The function reads 24 B a live slot
 // and writes 24 B a slot: 0.66 GB at garden (13.1M live of 14.19M), 0.20
@@ -140,9 +178,22 @@ constexpr int kDigitBits = 8;
 constexpr int kBins = 1 << kDigitBits;
 constexpr uint32_t kDigitMask = (2u << kDigitBits) - 1u;  // a digit, or kBins for no slot
 constexpr int kMaxPasses = 8;              // 32 + 31 key bits
+constexpr int kKeyTileDepth = 0;           // vk3d_radix_sort's keys
+constexpr int kKeyTile = 1;
+constexpr int kDepthPasses = 4;            // the rows' 32-bit depth key
+constexpr int kRowThreads = 512;           // the rows' prep and scan: a block's threads,
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kRowItems = 8;               // rows a thread,
+constexpr int kRowTile = kRowThreads * kRowItems;  // 4096 rows a partition,
+constexpr int kRowBlocksPerSm = 2;         // blocks an SM
 // The scratch's header: the setup's flag, a ticket a pass, and the
-// [kMaxPasses][kBins] global digit table (16 B aligned after it).
+// [kMaxPasses][kBins] global digit table (16 B aligned after it); the rows'
+// depth order also takes a ticket for its prep and its scan, and keeps its
+// number of kept rows as an int64.
 constexpr int kTicketWord = 1;
+constexpr int kPrepTicketWord = kTicketWord + kDepthPasses;
+constexpr int kScanTicketWord = kPrepTicketWord + 1;
+constexpr int kLiveRowsWord = 8;
 constexpr int kHistWord = 16;
 constexpr int kHeaderWords = kHistWord + kMaxPasses * kBins;
 constexpr int kHistThreads = 256;
@@ -167,6 +218,11 @@ static_assert(kTile <= 0x10000 && kTile % 4 == 0, "places pack two to a register
 static_assert(kDigitBits + 1 + 5 + 6 <= 32, "a digit, the lanes below and its peers in one word");
 static_assert(kWarps * kBins * 4 >= kTile * 2, "the inverse map fits over the warp counters");
 static_assert(kHeaderWords % 4 == 0, "the status words start 16 B aligned");
+static_assert(kScanTicketWord < kLiveRowsWord && kLiveRowsWord % 2 == 0 &&
+                  kLiveRowsWord + 2 <= kHistWord,
+              "the rows' tickets and int64 count fit the header");
+static_assert(kRowItems * kRowWarps <= kRowThreads,
+              "a thread a (round, warp) total in a partition scan");
 static_assert(kScatterSmem <= 227 * 1024 &&
                   kScatterBlocksPerSm * (kScatterSmem + 1024 + 32) <= 228 * 1024,
               "the scatter blocks an SM fit its shared memory");
@@ -314,12 +370,15 @@ __global__ void __launch_bounds__(kHistThreads) radix_setup_kernel(
 }
 
 // (a) Every pass's digit counts of [0, n) into hist[passes][kBins], and the
-// status words zeroed.
+// status words zeroed.  kDepth: the full key, four depth digits under the
+// tile' digits; else the tile key, whose histogram reads the tile alone.
+template <bool kDepth>
 __global__ void __launch_bounds__(kHistThreads) radix_histogram_kernel(
     const int64_t* __restrict__ tile, const int64_t* __restrict__ depth,
     const int64_t* __restrict__ count, const uint32_t* __restrict__ flag, uint32_t e,
     uint32_t num_tiles, int passes, uint32_t* __restrict__ hist, uint4* __restrict__ status,
     size_t status_vecs) {
+  constexpr int kTilePass = kDepth ? kDepthPasses : 0;  // the first tile' digit's pass
   __shared__ uint32_t bins[kMaxPasses * kBins];
   for (int k = threadIdx.x; k < passes * kBins; k += kHistThreads) bins[k] = 0;
   const size_t stride = static_cast<size_t>(gridDim.x) * kHistThreads;
@@ -340,7 +399,9 @@ __global__ void __launch_bounds__(kHistThreads) radix_histogram_kernel(
       if (i < n) {
         // The low words, as the first scatter stages them.
         const auto t32 = static_cast<uint32_t>(__ldcs(reinterpret_cast<const long long*>(tile) + i));
-        d[k] = static_cast<uint32_t>(__ldcs(reinterpret_cast<const long long*>(depth) + i));
+        if (kDepth) {
+          d[k] = static_cast<uint32_t>(__ldcs(reinterpret_cast<const long long*>(depth) + i));
+        }
         t[k] = t32 == kSentinelWord ? num_tiles : t32;
       }
     }
@@ -348,11 +409,12 @@ __global__ void __launch_bounds__(kHistThreads) radix_histogram_kernel(
     for (int k = 0; k < kHistItems; ++k) {
       if (base + k * kHistThreads + threadIdx.x < n) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < kTilePass; ++q) {
           atomicAdd(&bins[q * kBins + ((d[k] >> (kDigitBits * q)) & (kBins - 1))], 1u);
         }
-        for (int q = 4; q < passes; ++q) {
-          atomicAdd(&bins[q * kBins + ((t[k] >> (kDigitBits * (q - 4))) & (kBins - 1))], 1u);
+        for (int q = kTilePass; q < passes; ++q) {
+          atomicAdd(&bins[q * kBins + ((t[k] >> (kDigitBits * (q - kTilePass))) & (kBins - 1))],
+                    1u);
         }
       }
     }
@@ -373,6 +435,10 @@ struct Pass {
   int64_t* out_depth;
   int64_t* out_index;
   int64_t* out_perm;       // NULL: no permutation; the payload is the id
+  int32_t* out_rows;       // the rows' last pass: [6][e] int32, as K1 reads them
+  const int64_t* cum;      // the rows: K7's scan, for the count of a row marked in its h
+  int64_t capacity;        // the rows: E
+  int bx, by;              // the rows: the packed word's min_x and min_y bits
   const uint32_t* hist;    // this pass's [kBins] digit counts
   uint32_t* status;        // this pass's [partitions][kBins] look-back words
   uint32_t* ticket;        // this pass's partition ticket
@@ -385,6 +451,36 @@ struct Pass {
   int shift;
   int pass;
 };
+
+// The rows' packed word: min_x (bx bits), min_y (by), max(w, 1) (bx), and h
+// in the bits above them, all ones for a row whose kept count is read from
+// the scan.
+struct RowFields {
+  uint32_t min_x, min_y, gw, h;
+};
+
+__device__ __forceinline__ uint32_t h_shift(int bx, int by) { return 2 * bx + by; }
+
+__device__ __forceinline__ uint32_t h_marker(int bx, int by) {
+  return 0xFFFFFFFFu >> h_shift(bx, by);
+}
+
+__device__ __forceinline__ uint32_t pack_row(const RowFields& f, int bx, int by) {
+  return f.min_x | (f.min_y << bx) | (f.gw << (bx + by)) | (f.h << h_shift(bx, by));
+}
+
+__device__ __forceinline__ RowFields unpack_row(uint32_t w, int bx, int by) {
+  return {w & ((1u << bx) - 1u), (w >> bx) & ((1u << by) - 1u),
+          (w >> (bx + by)) & ((1u << bx) - 1u), w >> h_shift(bx, by)};
+}
+
+// A row's kept slots: its share of [0, E) in K7's index-order expansion.
+__device__ __forceinline__ uint32_t kept_count(const int64_t* cum, uint32_t row, int64_t capacity) {
+  const int64_t end = cum[row];
+  const int64_t start = row > 0 ? cum[row - 1] : 0;
+  return static_cast<uint32_t>((end < capacity ? end : capacity) -
+                               (start < capacity ? start : capacity));
+}
 
 // Starts the staging of the records of the partition at `start`, [0, cnt)
 // of each column, into `buf` ([3][kTile]).  The first pass copies the low
@@ -453,14 +549,18 @@ __device__ __forceinline__ void wait_records(uint64_t* bars, uint32_t b, uint32_
 // lanes below it and its peers in its round (__match_any_sync) beside it
 // in dr (9 + 5 + 6 bits; an invalid slot carries the digit kBins), and the
 // round's lowest peer adds their number to the partition's count of the
-// digit in bcount.
+// digit in bcount.  `sentinel_to`: a staged tile's SENTINEL word counts as
+// this value (num_tiles, the first pass of the tile key), or 0: no map.
 __device__ __forceinline__ void count_partition(const uint32_t* dcol, uint32_t cnt, int shift,
-                                                uint32_t wbase, uint32_t below_mask,
-                                                uint32_t* bcount, uint32_t (&dr)[kItems]) {
+                                                uint32_t sentinel_to, uint32_t wbase,
+                                                uint32_t below_mask, uint32_t* bcount,
+                                                uint32_t (&dr)[kItems]) {
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const uint32_t i = wbase + 32 * j;
-    const uint32_t d = i < cnt ? (dcol[i] >> shift) & (kBins - 1) : kBins;
+    uint32_t v = i < cnt ? dcol[i] : 0u;
+    if (sentinel_to != 0 && v == kSentinelWord) v = sentinel_to;
+    const uint32_t d = i < cnt ? (v >> shift) & (kBins - 1) : kBins;
     const uint32_t peers = __match_any_sync(kFull, d);
     const uint32_t below = __popc(peers & below_mask);
     if (d < kBins && below == 0) atomicAdd(&bcount[d], __popc(peers));
@@ -469,9 +569,13 @@ __device__ __forceinline__ void count_partition(const uint32_t* dcol, uint32_t c
 }
 
 // (b) One digit's chained-scan scatter: a persistent block's pipeline over
-// its tickets (steps 1-5 and the loop at the top of the file).
-template <bool kFirst, bool kLast>
+// its tickets (steps 1-5 and the loop at the top of the file).  kFirst: the
+// sort's first pass, staged from the int64 columns; kLast: its last, which
+// stores the int64 columns, or with kRows the rows' six int32 columns.
+template <bool kFirst, bool kLast, bool kRows>
 __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_kernel(const Pass p) {
+  static_assert(!kRows || (kLast && !kFirst),
+                "the rows' records are prepped; kRows is a last pass");
   extern __shared__ __align__(16) uint32_t smem[];  // [2][kStage] the record buffers, then:
   __shared__ uint32_t s_ticket;
   __shared__ uint64_t s_bar[4];  // the record buffers' bulk copies: [buffer][digits, the rest]
@@ -491,6 +595,7 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
   uint32_t* wh = whist + warp * kBins;
   auto* inv = reinterpret_cast<uint16_t*>(whist);
   const uint32_t n = sorted_len(p.count, p.flag, p.e);
+  const uint32_t sentinel_to = kFirst && p.column == 1 ? p.num_tiles : 0u;
 
   // The first partition: its ticket, its stage, its count (step 2) and its
   // AGGREGATE word (INCLUSIVE for partition 0).
@@ -512,7 +617,7 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
   RADIX_PHASE(12, clock64() - g_phases[p.pass][part][1]);
   uint32_t dr[kItems];
   count_partition(smem + p.column * kTile, min(n - part * kTile, static_cast<uint32_t>(kTile)),
-                  p.shift, wbase, below_mask, bcount, dr);
+                  p.shift, sentinel_to, wbase, below_mask, bcount, dr);
   __syncthreads();
   uint32_t run = 0;
   if (bin_thread) {
@@ -613,8 +718,8 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
       wait_digits<kFirst>(s_bar, b ^ 1u, parities);
       __syncthreads();
       RADIX_PHASE_AT(next, 12, clock64() - g_phases[p.pass][part][5]);
-      count_partition(smem + (b ^ 1u) * kStage + p.column * kTile, next_cnt, p.shift, wbase,
-                      below_mask, bcount, dr);
+      count_partition(smem + (b ^ 1u) * kStage + p.column * kTile, next_cnt, p.shift,
+                      sentinel_to, wbase, below_mask, bcount, dr);
       __syncthreads();
       if (bin_thread) {
         next_run = bcount[tid];
@@ -689,7 +794,18 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
         const uint32_t pk =
             kFirst && p.out_perm != nullptr ? start + src : s_col[2 * kTile + src];
         const uint32_t g = gdelta[((p.column == 0 ? dk : tk) >> p.shift) & (kBins - 1)] + i;
-        if (kLast) {
+        if (kRows) {
+          // tk is the packed word, pk the row id.
+          const RowFields f = unpack_row(tk, p.bx, p.by);
+          const uint32_t kept =
+              f.h == h_marker(p.bx, p.by) ? kept_count(p.cum, pk, p.capacity) : f.gw * f.h;
+          const uint32_t vals[6] = {pk, kept, f.gw, f.min_x, f.min_y, dk};
+#pragma unroll
+          for (int c = 0; c < 6; ++c) {
+            __stcs(reinterpret_cast<int*>(p.out_rows) + c * static_cast<size_t>(p.e) + g,
+                   static_cast<int>(vals[c]));
+          }
+        } else if (kLast) {
           auto* out_tile = reinterpret_cast<long long*>(p.out_tile);
           auto* out_depth = reinterpret_cast<long long*>(p.out_depth);
           auto* out_index = reinterpret_cast<long long*>(p.out_index);
@@ -721,20 +837,234 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
   }
 }
 
+// A partition's scan in the rows' kernels, (c) and (e): v[j] holds element
+// j * kRowThreads + tid of the partition (element order j, then warp, then
+// lane); each becomes its inclusive prefix within the partition, and the
+// partition's total is returned.  Every thread of the block must call it.
+__device__ __forceinline__ uint32_t partition_scan(uint32_t (&v)[kRowItems], uint32_t* s_tot,
+                                                   uint32_t* sums) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+#pragma unroll
+  for (int j = 0; j < kRowItems; ++j) {
+    v[j] = warp_inclusive(v[j]);
+    if (lane == 31) s_tot[j * kRowWarps + warp] = v[j];
+  }
+  __syncthreads();
+  const uint32_t t = tid < kRowItems * kRowWarps ? s_tot[tid] : 0u;
+  const uint32_t before = block_exclusive_scan(t, sums);
+  if (tid < kRowItems * kRowWarps) s_tot[tid] = before;
+  if (tid == kRowItems * kRowWarps - 1) sums[0] = before + t;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kRowItems; ++j) v[j] += s_tot[j * kRowWarps + warp];
+  const uint32_t total = sums[0];
+  __syncthreads();  // s_tot and sums may be reused
+  return total;
+}
+
+// Warp 0's decoupled look-back over one status word a partition: publishes
+// partition `part`'s total, reads its predecessors' words 32 at a time, a
+// lane a word from the nearest down, waits until each of them is published,
+// sums them down to the nearest INCLUSIVE one, publishes its INCLUSIVE
+// prefix, and returns its exclusive prefix to every lane.  Partitions are
+// taken by ticket, so every predecessor's block is running or done, and
+// every word below an INCLUSIVE one is published.
+__device__ __forceinline__ uint32_t chained_prefix(uint32_t* status, uint32_t part,
+                                                   uint32_t total) {
+  const int lane = threadIdx.x & 31;
+  if (part == 0) {
+    if (lane == 0) store_status(status, kInclusive | total);
+    return 0;
+  }
+  if (lane == 0) store_status(status + part, kAggregate | total);
+  uint32_t excl = 0;
+  for (int64_t below = part;; below -= 32) {
+    const int64_t k = below - 1 - lane;
+    uint32_t w = k >= 0 ? load_status(status + k) : kInclusive;
+    while (__any_sync(kFull, w < kAggregate)) {
+      if (w < kAggregate) w = load_status(status + k);
+    }
+    const unsigned inclusive = __ballot_sync(kFull, w >= kInclusive);
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    uint32_t v = lane <= stop ? w & kCountMask : 0u;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+    excl += v;
+    if (inclusive) break;
+  }
+  if (lane == 0) store_status(status + part, kInclusive | (excl + total));
+  return excl;
+}
+
+// The next partition's ticket, for every thread of a persistent rows block
+// (`s_part` shared); a barrier must separate two calls.
+__device__ __forceinline__ uint32_t next_ticket(uint32_t* ticket, uint32_t* s_part) {
+  if (threadIdx.x == 0) *s_part = atomicAdd(ticket, 1u);
+  __syncthreads();
+  return *s_part;
+}
+
+struct RowsPrep {
+  const int32_t* cols;     // K7's [6][n] int32 rows
+  const int64_t* cum;      // K7's inclusive scan of the counts
+  uint32_t n;
+  int64_t capacity;
+  int bx, by;
+  uint32_t* rec;           // [3][stride] the kept rows' records, in id order
+  uint32_t stride;
+  uint32_t* hist;          // [kDepthPasses][kBins]
+  uint32_t* status;        // a word a partition
+  uint32_t* ticket;
+  int64_t* kept_rows;      // m
+  uint4* zero;             // the passes' and the scan's status words
+  size_t zero_vecs;
+};
+
+// (c) The rows' records, compacted, and the depth key's digit counts: a
+// persistent block takes kRowTile-row partitions by ticket, in order, and
+// adds its digit counts to the global table once, at its end.
+__global__ void __launch_bounds__(kRowThreads, kRowBlocksPerSm)
+    radix_rows_prep_kernel(const RowsPrep q) {
+  __shared__ uint32_t bins[kDepthPasses * kBins];
+  __shared__ uint32_t s_tot[kRowItems * kRowWarps];
+  __shared__ uint32_t sums[32];
+  __shared__ uint32_t s_part, s_excl;
+  const int tid = threadIdx.x;
+  for (int k = tid; k < kDepthPasses * kBins; k += kRowThreads) bins[k] = 0;
+  const size_t stride = static_cast<size_t>(gridDim.x) * kRowThreads;
+  for (size_t k = static_cast<size_t>(blockIdx.x) * kRowThreads + tid; k < q.zero_vecs;
+       k += stride) {
+    q.zero[k] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  const uint32_t marker = h_marker(q.bx, q.by);
+  const size_t n = q.n;
+  const uint32_t last = (q.n - 1) / kRowTile;
+  for (uint32_t part; (part = next_ticket(q.ticket, &s_part)) <= last;) {
+    const uint32_t base = part * kRowTile;
+    uint32_t depth[kRowItems], packed[kRowItems], pos[kRowItems];
+    uint32_t kept_mask = 0;
+#pragma unroll
+    for (int j = 0; j < kRowItems; ++j) {
+      const uint32_t i = base + j * kRowThreads + tid;
+      depth[j] = packed[j] = pos[j] = 0;
+      if (i < q.n) {
+        const int64_t end = q.cum[i];
+        const int64_t start = i > 0 ? q.cum[i - 1] : 0;
+        const auto kept = static_cast<uint32_t>((end < q.capacity ? end : q.capacity) -
+                                                (start < q.capacity ? start : q.capacity));
+        RowFields f{static_cast<uint32_t>(q.cols[3 * n + i]),
+                    static_cast<uint32_t>(q.cols[4 * n + i]),
+                    static_cast<uint32_t>(q.cols[2 * n + i]), 0u};
+        depth[j] = static_cast<uint32_t>(q.cols[5 * n + i]);
+        if (kept > 0) {
+          // h, unless the row keeps part of its count or its count is not
+          // max(w, 1) h: then the marker.
+          const uint32_t h = f.gw > 0 ? kept / f.gw : marker;
+          f.h = end - start == kept && f.gw > 0 && h * f.gw == kept && h < marker ? h : marker;
+          pos[j] = 1;
+          kept_mask |= 1u << j;
+        }
+        packed[j] = pack_row(f, q.bx, q.by);
+      }
+    }
+    const uint32_t total = partition_scan(pos, s_tot, sums);
+    if (tid < 32) {
+      const uint32_t excl = chained_prefix(q.status, part, total);
+      if (tid == 0) {
+        s_excl = excl;
+        if (part == last) *q.kept_rows = excl + total;
+      }
+    }
+    __syncthreads();
+    const uint32_t excl = s_excl;
+#pragma unroll
+    for (int j = 0; j < kRowItems; ++j) {
+      if (kept_mask >> j & 1u) {
+        const uint32_t at = excl + pos[j] - 1;
+        q.rec[at] = depth[j];
+        q.rec[q.stride + at] = packed[j];
+        q.rec[2 * static_cast<size_t>(q.stride) + at] = base + j * kRowThreads + tid;
+#pragma unroll
+        for (int d = 0; d < kDepthPasses; ++d) {
+          atomicAdd(&bins[d * kBins + ((depth[j] >> (kDigitBits * d)) & (kBins - 1))], 1u);
+        }
+      }
+    }
+    __syncthreads();  // every thread has read s_excl
+  }
+  for (int k = tid; k < kDepthPasses * kBins; k += kRowThreads) {
+    if (bins[k] != 0) atomicAdd(&q.hist[k], bins[k]);
+  }
+}
+
+// (e) The kept counts in depth order (rows' column 1, [0, m)) scanned: the
+// inclusive scan into `cum`, the exclusive one over the column; rows at and
+// past m keep 0.  Persistent blocks take kRowTile-row partitions by ticket.
+__global__ void __launch_bounds__(kRowThreads, kRowBlocksPerSm) radix_rows_scan_kernel(
+    int32_t* __restrict__ kept, int64_t* __restrict__ cum, uint32_t n,
+    const int64_t* __restrict__ kept_rows, uint32_t* __restrict__ status,
+    uint32_t* __restrict__ ticket) {
+  __shared__ uint32_t s_tot[kRowItems * kRowWarps];
+  __shared__ uint32_t sums[32];
+  __shared__ uint32_t s_part, s_excl;
+  const int tid = threadIdx.x;
+  const auto m = static_cast<uint32_t>(*kept_rows);
+  const uint32_t last = (n - 1) / kRowTile;
+  for (uint32_t part; (part = next_ticket(ticket, &s_part)) <= last;) {
+    const uint32_t base = part * kRowTile;
+    uint32_t v[kRowItems], inc[kRowItems];
+#pragma unroll
+    for (int j = 0; j < kRowItems; ++j) {
+      const uint32_t i = base + j * kRowThreads + tid;
+      v[j] = i < m ? static_cast<uint32_t>(kept[i]) : 0u;
+      inc[j] = v[j];
+    }
+    const uint32_t total = partition_scan(inc, s_tot, sums);
+    if (tid < 32) {
+      const uint32_t excl = chained_prefix(status, part, total);
+      if (tid == 0) s_excl = excl;
+    }
+    __syncthreads();
+    const uint32_t excl = s_excl;
+#pragma unroll
+    for (int j = 0; j < kRowItems; ++j) {
+      const uint32_t i = base + j * kRowThreads + tid;
+      if (i < n) {
+        cum[i] = excl + inc[j];
+        kept[i] = static_cast<int32_t>(excl + inc[j] - v[j]);
+      }
+    }
+    __syncthreads();  // every thread has read s_excl
+  }
+}
+
+// The rows kernels' persistent grid on `device`: kRowBlocksPerSm blocks an
+// SM, at most `nparts`.
+cudaError_t rows_grid(int device, uint32_t nparts, uint32_t* blocks) {
+  int sms = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const uint32_t resident = static_cast<uint32_t>(sms) * kRowBlocksPerSm;
+  *blocks = resident < nparts ? resident : nparts;
+  return cudaSuccess;
+}
+
 // The scatter's grid for `device`: its SMs times the blocks an SM that the
 // kernel's occupancy allows.  Above 48 KB of shared memory needs the
 // kernel's opt-in, a host call made once a device per process with the
 // occupancy query (cached for devices below 64, asked every time from 64
 // on); a refused call is returned and asked again next time.  The carveout
 // asks for the most shared memory, so the block's 211 KiB fit an SM.
-template <bool kFirst, bool kLast>
+template <bool kFirst, bool kLast, bool kRows>
 cudaError_t scatter_grid(int device, uint32_t* blocks) {
   static std::atomic<uint32_t> cached[64];
   const bool cacheable = device >= 0 && device < 64;
   if (cacheable && (*blocks = cached[device].load(std::memory_order_acquire)) != 0) {
     return cudaSuccess;
   }
-  const auto kernel = radix_scatter_kernel<kFirst, kLast>;
+  const auto kernel = radix_scatter_kernel<kFirst, kLast, kRows>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScatterSmem);
   if (err == cudaSuccess) {
@@ -754,12 +1084,12 @@ cudaError_t scatter_grid(int device, uint32_t* blocks) {
   return cudaSuccess;
 }
 
-template <bool kFirst, bool kLast>
+template <bool kFirst, bool kLast, bool kRows = false>
 cudaError_t launch_scatter(const Pass& p, uint32_t nparts, int device, cudaStream_t s) {
   uint32_t blocks = 0;
-  const cudaError_t err = scatter_grid<kFirst, kLast>(device, &blocks);
+  const cudaError_t err = scatter_grid<kFirst, kLast, kRows>(device, &blocks);
   if (err != cudaSuccess) return err;
-  radix_scatter_kernel<kFirst, kLast>
+  radix_scatter_kernel<kFirst, kLast, kRows>
       <<<blocks < nparts ? blocks : nparts, kThreads, kScatterSmem, s>>>(p);
   return cudaGetLastError();
 }
@@ -803,35 +1133,39 @@ extern "C" int vk3d_radix_phases(void* out) {
 extern "C" int64_t vk3d_radix_resident_blocks(int32_t device) {
   cudaError_t err = cudaSetDevice(device);
   uint32_t blocks = 0;
-  if (err == cudaSuccess) err = scatter_grid<false, false>(device, &blocks);
+  if (err == cudaSuccess) err = scatter_grid<false, false, false>(device, &blocks);
   return err == cudaSuccess ? static_cast<int64_t>(blocks) : -static_cast<int64_t>(err);
 }
 
 // Sorts the [e] int64 columns tile, depth, index (uint32 values; tiles below
-// num_tiles or SENTINEL) by (tile, depth), stably, into out_tile, out_depth,
-// out_index, and the slot permutation into out_perm unless it is NULL.
-// count: a [] int64 on the device bounding the sorted prefix, or NULL for
-// every slot.  e < 2^30 (the status words' counts).  scratch:
-// radix_kernel.scratch_words(e, num_tiles) uint32 words, 16 B aligned (the
-// header, the [passes][partitions][256] status words, two [3][e rounded up
-// to 4] record buffers).  *launches receives the number of kernels
-// launched.
+// num_tiles or SENTINEL) by `key`, stably: kKeyTileDepth (tile, depth),
+// kKeyTile the tile alone; into out_tile, out_depth, out_index, and the slot
+// permutation into out_perm unless it is NULL.  count: a [] int64 on the
+// device bounding the sorted prefix, or NULL for every slot.  e < 2^30 (the
+// status words' counts).  scratch: radix_kernel.scratch_words(e, num_tiles,
+// key) uint32 words, 16 B aligned (the header, the [passes][partitions][256]
+// status words, two [3][e rounded up to 4] record buffers).  *launches
+// receives the number of kernels launched.
 extern "C" int vk3d_radix_sort(const void* tile, const void* depth, const void* index,
-                               const void* count, int64_t e, int64_t num_tiles, void* scratch,
-                               void* out_tile, void* out_depth, void* out_index, void* out_perm,
-                               int64_t* launches, int32_t device, void* stream) {
+                               const void* count, int64_t e, int64_t num_tiles, int32_t key,
+                               void* scratch, void* out_tile, void* out_depth, void* out_index,
+                               void* out_perm, int64_t* launches, int32_t device, void* stream) {
   *launches = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (e < 0 || e >= (int64_t{1} << kStatusCountBits) || num_tiles <= 0 ||
-      num_tiles >= (int64_t{1} << 31) || reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
+      num_tiles >= (int64_t{1} << 31) || reinterpret_cast<uintptr_t>(scratch) % 16 != 0 ||
+      (key != kKeyTileDepth && key != kKeyTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (e == 0) return static_cast<int>(cudaSuccess);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto ne = static_cast<uint32_t>(e);
   const uint32_t nparts = (ne + kTile - 1) / kTile;
-  const int passes = (32 + bit_length(num_tiles) + kDigitBits - 1) / kDigitBits;
+  const bool with_depth = key == kKeyTileDepth;
+  const int depth_passes = with_depth ? kDepthPasses : 0;
+  const int passes =
+      (kDigitBits * depth_passes + bit_length(num_tiles) + kDigitBits - 1) / kDigitBits;
   uint32_t* header = static_cast<uint32_t*>(scratch);
   uint32_t* flag = header;
   uint32_t* tickets = header + kTicketWord;
@@ -870,9 +1204,12 @@ extern "C" int vk3d_radix_sort(const void* tile, const void* depth, const void* 
     ++*launches;
   }
   const uint32_t hist_need = (ne + kHistThreads * kHistItems - 1) / (kHistThreads * kHistItems);
-  radix_histogram_kernel<<<hist_need < kHistBlocks ? hist_need : kHistBlocks, kHistThreads, 0,
-                           s>>>(p.tile64, p.depth64, p.count, flag, ne, p.num_tiles, passes, hist,
-                                reinterpret_cast<uint4*>(status), status_words / 4);
+  const uint32_t hist_blocks = hist_need < kHistBlocks ? hist_need : kHistBlocks;
+  const auto histogram = with_depth ? radix_histogram_kernel<true> : radix_histogram_kernel<false>;
+  histogram<<<hist_blocks, kHistThreads, 0, s>>>(p.tile64, p.depth64, p.count, flag, ne,
+                                                 p.num_tiles, passes, hist,
+                                                 reinterpret_cast<uint4*>(status),
+                                                 status_words / 4);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   ++*launches;
 
@@ -885,14 +1222,123 @@ extern "C" int vk3d_radix_sort(const void* tile, const void* depth, const void* 
     p.hist = hist + q * kBins;
     p.status = status + static_cast<size_t>(q) * nparts * kBins;
     p.ticket = tickets + q;
-    p.column = q < 4 ? 0 : 1;
-    p.shift = kDigitBits * (q < 4 ? q : q - 4);
+    p.column = q < depth_passes ? 0 : 1;
+    p.shift = kDigitBits * (q < depth_passes ? q : q - depth_passes);
     p.pass = q;
-    err = first ? launch_scatter<true, false>(p, nparts, device, s)
+    err = first ? (last ? launch_scatter<true, true>(p, nparts, device, s)
+                        : launch_scatter<true, false>(p, nparts, device, s))
                 : (last ? launch_scatter<false, true>(p, nparts, device, s)
                         : launch_scatter<false, false>(p, nparts, device, s));
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launches;
   }
+  return static_cast<int>(cudaSuccess);
+}
+
+// Puts keygen's n rows (K7's [6][n] int32 columns and their inclusive int64
+// scan `cum`) in the stable order of their depth keys, each with its kept
+// count at the capacity E: out_cols [6][n] int32 (id, the exclusive scan of
+// the kept counts in that order, max(w, 1), min_x, min_y, depth bits) and
+// out_cum [n] int64 (their inclusive scan), as K1 reads them.  The kept
+// rows come first; a row past them keeps 0 slots and only its offset and
+// scan are written.  min_x and max(w, 1) must be below 2^bit_length(grid_w)
+// and min_y below 2^bit_length(grid_h), as K7 writes them, with
+// 2 bit_length(grid_w) + bit_length(grid_h) + bit_length(grid_h + 1) <= 32;
+// n < 2^30 and E < 2^30 (the status words' counts).  scratch:
+// radix_kernel.depth_order_scratch_words(n) uint32 words, 16 B aligned (the
+// header, the prep's and the scan's status words, a word a partition each
+// rounded up to 4, the passes' [4][partitions][256] status words, two
+// [3][n rounded up to 4] record buffers).  *launches receives the number of
+// kernels launched.
+extern "C" int vk3d_radix_depth_order(const void* cols, const void* cum, int64_t n,
+                                      int64_t capacity, int64_t grid_w, int64_t grid_h,
+                                      void* scratch, void* out_cols, void* out_cum,
+                                      int64_t* launches, int32_t device, void* stream) {
+  *launches = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int bx = bit_length(grid_w);
+  const int by = bit_length(grid_h);
+  if (n < 0 || n >= (int64_t{1} << kStatusCountBits) || capacity < 0 ||
+      capacity >= (int64_t{1} << kStatusCountBits) || grid_w <= 0 || grid_h <= 0 ||
+      2 * bx + by + bit_length(grid_h + 1) > 32 ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto nr = static_cast<uint32_t>(n);
+  const uint32_t nparts = (nr + kTile - 1) / kTile;
+  const uint32_t row_parts = (nr + kRowTile - 1) / kRowTile;
+  const uint32_t part_words = (row_parts + 3) & ~3u;
+  uint32_t row_blocks = 0;
+  if ((err = rows_grid(device, row_parts, &row_blocks)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  uint32_t* header = static_cast<uint32_t*>(scratch);
+  uint32_t* hist = header + kHistWord;
+  auto* kept_rows = reinterpret_cast<int64_t*>(header + kLiveRowsWord);
+  uint32_t* prep_status = header + kHeaderWords;
+  uint32_t* scan_status = prep_status + part_words;
+  uint32_t* status = scan_status + part_words;
+  const size_t status_words = static_cast<size_t>(kDepthPasses) * nparts * kBins;
+  const uint32_t stride = (nr + 3) & ~3u;
+  uint32_t* a = status + status_words;
+  uint32_t* b = a + 3 * static_cast<size_t>(stride);
+
+  // The header (tickets, the digit table, the flag the passes read as 0)
+  // and the prep's status words start at zero; the prep zeroes the rest.
+  err = cudaMemsetAsync(header, 0, (kHeaderWords + part_words) * sizeof(uint32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  RowsPrep q{};
+  q.cols = static_cast<const int32_t*>(cols);
+  q.cum = static_cast<const int64_t*>(cum);
+  q.n = nr;
+  q.capacity = capacity;
+  q.bx = bx;
+  q.by = by;
+  q.rec = b;
+  q.stride = stride;
+  q.hist = hist;
+  q.status = prep_status;
+  q.ticket = header + kPrepTicketWord;
+  q.kept_rows = kept_rows;
+  q.zero = reinterpret_cast<uint4*>(scan_status);
+  q.zero_vecs = (part_words + status_words) / 4;
+  radix_rows_prep_kernel<<<row_blocks, kRowThreads, 0, s>>>(q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
+
+  Pass p{};
+  p.out_rows = static_cast<int32_t*>(out_cols);
+  p.cum = q.cum;
+  p.capacity = capacity;
+  p.bx = bx;
+  p.by = by;
+  p.count = kept_rows;
+  p.flag = header;
+  p.e = nr;
+  p.stride = stride;
+  p.column = 0;
+  // The prep wrote b: pass q reads what pass q - 1 wrote, even passes
+  // write a, odd ones b, the last the rows.
+  for (int pass = 0; pass < kDepthPasses; ++pass) {
+    p.in = pass % 2 == 1 ? a : b;
+    p.out = pass % 2 == 0 ? a : b;
+    p.hist = hist + pass * kBins;
+    p.status = status + static_cast<size_t>(pass) * nparts * kBins;
+    p.ticket = header + kTicketWord + pass;
+    p.shift = kDigitBits * pass;
+    p.pass = pass;
+    err = pass == kDepthPasses - 1 ? launch_scatter<false, true, true>(p, nparts, device, s)
+                                   : launch_scatter<false, false>(p, nparts, device, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+  }
+  radix_rows_scan_kernel<<<row_blocks, kRowThreads, 0, s>>>(
+      static_cast<int32_t*>(out_cols) + n, static_cast<int64_t*>(out_cum), nr, kept_rows,
+      scan_status, header + kScanTicketWord);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ++*launches;
   return static_cast<int>(cudaSuccess);
 }

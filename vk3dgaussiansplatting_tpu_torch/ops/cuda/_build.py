@@ -27,15 +27,18 @@ raises on the CUDA error the entry point returns, and counts the launch in
   compact_slabs, compact_runs           K5
   compact_segments                      K6
   radix_sort                            radix sorts (one entry-point call each)
-  radix_kernels                         the kernels those sorts ran, as the
-                                        entry point reports them
+  depth_order                           keygen's rows put in depth order (one
+                                        call a frame on the radix path)
+  radix_kernels                         the kernels those sorts and depth
+                                        orders ran, as the entry points
+                                        report them
   bitonic_first, bitonic_merge          the bitonic tier's shared-memory
                                         passes (one first pass a sort)
   bitonic_register, bitonic_wide        its global passes
   bitonic_global_stages                 the stages its global passes ran
 
 "radix_kernels" and "bitonic_global_stages" count no launch of their own:
-the two sorts' wrappers add them after `launch`.
+the sorts' wrappers add them after `launch`.
 """
 
 from __future__ import annotations
@@ -112,10 +115,17 @@ SIGNATURES = {
     "vk3d_bitonic_pass": (
         [_I32, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P], ctypes.c_int,
     ),
-    # tile, depth, index, count (or NULL), e, num_tiles, scratch, out_tile,
-    # out_depth, out_index, out_perm (or NULL), launches (out), device, stream
+    # tile, depth, index, count (or NULL), e, num_tiles, key, scratch,
+    # out_tile, out_depth, out_index, out_perm (or NULL), launches (out),
+    # device, stream
     "vk3d_radix_sort": (
-        [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I32, _P],
+        [_P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I32, _P],
+        ctypes.c_int,
+    ),
+    # cols, cum, n, capacity, grid_w, grid_h, scratch, out_cols, out_cum,
+    # launches (out), device, stream
+    "vk3d_radix_depth_order": (
+        [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, ctypes.POINTER(_I64), _I32, _P],
         ctypes.c_int,
     ),
     # out (host int32), n: csrc/radix.cu's constants

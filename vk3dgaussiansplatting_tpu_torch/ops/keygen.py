@@ -31,6 +31,13 @@ torch code of render/project.py with `torch.cumsum`, and
 `decode_slots_plain` over `expand_rows_plain`).
 Nothing on the card falls back to a plain version: a failed build or
 launch raises.
+
+With `depth_order` (the frame's radix path, ops/sort.py `depth_first`) the
+rows go through `cuda/radix_kernel.depth_order` between K7 and K1: the
+gaussians that keep a slot, in the stable order of their depth keys, each
+with the slots it keeps in the index-order expansion.  The list then holds
+the same elements and count in (depth, id) order, each gaussian's tiles
+row-major, and the sort keys the tile alone.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import torch
 from ..core.config import RenderConfig
 from ..utils.timing import section
 from . import prefilter
-from .cuda import expand_kernel, keygen_kernel
+from .cuda import expand_kernel, keygen_kernel, radix_kernel
 
 EXPANSION_METHODS = ("auto", "pallas", "stream", "repeat")
 
@@ -98,6 +105,7 @@ def generate_sort_elements(
     capacity: int,
     depth_thr=None,
     *,
+    depth_order: bool = False,
     timer=None,
 ):
     """Full InitSortList pass over the gaussian table.
@@ -117,6 +125,10 @@ def generate_sort_elements(
         (ops/prefilter.py): gaussians provably behind every touched tile's
         threshold emit no elements.  None, or an all-SENTINEL map, gives the
         unfiltered list bit for bit.
+      depth_order: expand the rows in depth order (`radix_kernel.depth_order`,
+        timed as "depth_order"): the same elements and count, in (depth,
+        id) order, for a sort on the tile alone; else in index order, as
+        the JAX package's list.
       timer: optional utils.timing.CudaPassTimer; times the expansion and
         decode as "expand".
 
@@ -126,13 +138,18 @@ def generate_sort_elements(
         raise ValueError(f"unknown expansion_method {config.expansion_method!r}")
     thr = None if depth_thr is None else prefilter.dilate_thresholds(depth_thr, config)
     p = keygen_kernel.project_gaussians(table, view, proj, cam_pos, config, capacity, thr)
+    cols, cum = p.cols, p.cum
+    if depth_order:
+        with section(timer, "depth_order"):
+            cols, cum = radix_kernel.depth_order(cols, cum, capacity, config.grid_width,
+                                                 config.grid_height)
     method = config.expansion_method
     with section(timer, "expand"):
         if method == "repeat":
-            out = expand_kernel.expand_elements_plain(p.cols, p.cum, capacity, config.grid_width)
+            out = expand_kernel.expand_elements_plain(cols, cum, capacity, config.grid_width)
         else:
             out = expand_kernel.expand_elements(
-                p.cols, p.cum, capacity, config.grid_width,
+                cols, cum, capacity, config.grid_width,
                 streamed=method == "stream" or depth_thr is not None)
 
     elements = SortElements(*out)

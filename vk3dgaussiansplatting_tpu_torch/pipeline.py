@@ -4,7 +4,8 @@ Port of `vk3dgaussiansplatting_tpu.pipeline`: the frame is the reference's
 pass sequence (recordCommandBuffer, Renderer.cpp:540-629) run as eager
 tensor code on one device,
 
-    keygen (cull + keys + SH, K1 / K1' expansion)  ->  sort  ->  find_ranges
+    keygen (cull + keys + SH, rows in depth order, K1 / K1' expansion)
+        ->  sort (the tile)  ->  find_ranges
         ->  blend  ->  quantize
 
 where the blend is K2 (uncapped, `blend_depth_cap == 0`) or the capped blend
@@ -54,13 +55,17 @@ class FrameOutputs(NamedTuple):
 
 
 def _sorted_frame(table, view, proj, cam_pos, config, capacity, timer, depth_thr=None):
-    """keygen -> sort -> ranges: (sorted elements, ranges, frame data)."""
+    """keygen -> sort -> ranges: (sorted elements, ranges, frame data).  On
+    the radix path (`sort_ops.depth_first`) keygen expands its rows in
+    depth order and the sort keys the tile alone."""
+    depth_first = sort_ops.depth_first(config)
     with section(timer, "keygen"):
         elements, frame = keygen_ops.generate_sort_elements(
-            table, view, proj, cam_pos, config, capacity, depth_thr, timer=timer,
+            table, view, proj, cam_pos, config, capacity, depth_thr, depth_order=depth_first,
+            timer=timer,
         )
     with section(timer, "sort"):
-        elements = sort_ops.sort_elements(elements, config, timer)
+        elements = sort_ops.sort_elements(elements, config, timer, depth_ordered=depth_first)
     with section(timer, "ranges"):
         ranges = ranges_ops.find_ranges(elements, config.num_tiles)
     return elements, ranges, frame
