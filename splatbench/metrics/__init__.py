@@ -31,6 +31,15 @@ class Readings(NamedTuple):
                  the timer (its events cost the host time)
     busy_s, window_s: device time with an operation running, and the
                  length from its first operation to its last, of that slice
+    host_spans:  hostprof.span_summary of the host-only tracer
+                 (CudaPassTimer(device_events=False)) over a closed loop with
+                 no profiler running: host ms a frame by span, host_frame_ms
+    host_idle:   hostprof.idle_split (us) of a profiled slice of
+                 `slice_frames` frames drawn under the host-only tracer:
+                 the device's idle time inside a `frame` span outside every
+                 `sync`, inside a `sync`, and outside the port
+    host_slice_s: that slice's length, from its first device operation to
+                 its last
     """
 
     frames: int
@@ -41,6 +50,9 @@ class Readings(NamedTuple):
     slice_frames: int
     busy_s: float | None
     window_s: float | None
+    host_spans: dict | None = None
+    host_idle: dict | None = None
+    host_slice_s: float | None = None
 
     def slice_frame_ms(self) -> float | None:
         """The profiled slice's device time from its first operation to its

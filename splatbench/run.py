@@ -29,8 +29,14 @@ With `--trace 1` the window also carries the port's CudaPassTimer (its
 events cost the host time, so the sections, not `frame_ms`, are read from
 it), and two profiled slices of `trace_frames` frames without the timer
 follow it (device activity alone, for the idle share and the frame's
-device time; with the host's, for the idle gaps' names); the result then
-holds the cell's per-layer metrics (metrics/<name>.py) and `breakdown`.
+device time; with the host's, for the idle gaps' names).  Then the host:
+a closed loop of 4 x `trace_frames` frames under the host-only tracer
+(CudaPassTimer(device_events=False)) with no profiler running, for the
+host's time a frame, and a third profiled slice of `trace_frames` frames
+under it, device and host activity, for the device's idle time by what
+the host was in (splatbench.hostprof's span_summary and idle_split).  The
+result then holds the cell's per-layer metrics (metrics/<name>.py) and
+`breakdown`.
 
 After the window: `attempted` is its frames, `failed` those the port
 flagged as not exact (`FrameOutputs.ok` False); the frames kept at the
@@ -186,9 +192,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
     from vk3dgaussiansplatting_tpu_torch import Renderer
     from vk3dgaussiansplatting_tpu_torch.models.gaussians import GaussianTable
     from vk3dgaussiansplatting_tpu_torch.ops import capped as capped_ops
-    from vk3dgaussiansplatting_tpu_torch.utils.timing import CudaPassTimer
+    from vk3dgaussiansplatting_tpu_torch.utils.timing import PROFILER_PREFIX, CudaPassTimer
 
-    from . import metrics, reference
+    from . import hostprof, metrics, reference
     from . import trace as tr
     from .metrics import work
 
@@ -272,26 +278,48 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
 
     busy_s = window_s = None
     breakdown = None
-    if trace and on_chip:
+    host_spans = host_idle = host_slice_s = None
+    if trace:
         k = traffic["trace_frames"]
         first = [warm + frames]
 
-        def traced(host):
+        def traced(host, tracer=None):
             # A slice the profiler returned empty is taken again.
             for _ in range(3):
                 dev_ev, cpu_ev = tr.profile(
-                    lambda: closed_loop(draws(first[0]), new_event, in_flight, frames=k),
+                    lambda: closed_loop(draws(first[0], tracer), new_event, in_flight, frames=k),
                     host=host)
                 first[0] += k
+                # Kineto gives each `vk3d/` section a device event too, a GPU
+                # user annotation over the kernels it launched: not device work.
+                dev_ev = [e for e in dev_ev if not e[0].startswith(PROFILER_PREFIX)]
                 if dev_ev:
                     return dev_ev, cpu_ev
             raise RuntimeError("the profiler recorded no device operation in three slices")
 
-        dev_ev, _ = traced(False)
-        busy_s, window_s, _ = tr.busy(dev_ev)
-        dev2, cpu2 = traced(True)
-        breakdown = {"device_ops": tr.top_ops(dev_ev),
-                     "idle_gaps": tr.named_gaps(tr.busy(dev2)[2], cpu2)}
+        if on_chip:
+            dev_ev, _ = traced(False)
+            busy_s, window_s, _ = tr.busy(dev_ev)
+            dev2, cpu2 = traced(True)
+            breakdown = {"device_ops": tr.top_ops(dev_ev),
+                         "idle_gaps": tr.named_gaps(tr.busy(dev2)[2], cpu2)}
+        # The host, after every other reading: its spans over a loop with no
+        # profiler running, then the device's idle time by those spans.
+        t_host = time.perf_counter()
+        host_timer = CudaPassTimer(device_events=False)
+        closed_loop(draws(first[0], host_timer), new_event, in_flight, frames=4 * k)
+        first[0] += 4 * k
+        host_spans = hostprof.span_summary(host_timer.spans(), host_timer.counts())
+        msg = (f"host: {host_spans['frames']} frames under the host-only tracer, "
+               f"host_frame_ms {host_spans['host_frame_ms']:.4f}, "
+               f"{host_spans['syncs_per_frame']:g} syncs a frame")
+        if on_chip:
+            dev3, cpu3 = traced(True, CudaPassTimer(device_events=False))
+            _, host_slice_s, gaps = tr.busy(dev3)
+            host_idle = hostprof.idle_split(gaps, cpu3)
+            idle = ", ".join(f"{n} {v:.1f}" for n, v in host_idle.items())
+            msg += f"; its profiled slice {host_slice_s * 1e3:.3f} ms, {idle}"
+        log(f"{msg}; {time.perf_counter() - t_host:.3f} s")
 
     # The program's state goes before the reference runs.
     del renderer, timer, oks, ends, start
@@ -322,7 +350,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
 
     if trace:
         r = metrics.Readings(frames, sections, path_counts, live_mean, work_counts,
-                             traffic["trace_frames"], busy_s, window_s)
+                             traffic["trace_frames"], busy_s, window_s, host_spans=host_spans,
+                             host_idle=host_idle, host_slice_s=host_slice_s)
         values = {m["name"]: (metrics.load(m["name"])(r) if on_chip else None, m["unit"])
                   for m in cell.per_layer}
     else:

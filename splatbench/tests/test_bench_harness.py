@@ -121,6 +121,17 @@ def test_a_traced_run_on_the_cpu_reports_no_device_metric(root):
     assert line["metrics"] == {}
 
 
+def test_a_traced_run_on_the_cpu_traces_the_host(root, capsys):
+    """The host-only tracer's loop runs on the CPU too (4 x trace_frames
+    frames, no sync on the uncapped path); the profiled slices need a card
+    and are skipped, and the run still comes out correct."""
+    line = _run(root, "tiny-orbit", trace=True)
+    assert line["correct"] is True and line["metrics"] == {}
+    err = capsys.readouterr().err
+    assert "host: 8 frames under the host-only tracer, host_frame_ms " in err, err
+    assert "0 syncs a frame" in err and "profiled slice" not in err
+
+
 def test_a_run_without_a_card_fails_and_prints_no_result():
     out = subprocess.run([sys.executable, "-m", "splatbench.run", "--workload", "garden-orbit",
                           "--seed", "1", "--seconds", "1", "--trace", "0"],
