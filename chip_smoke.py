@@ -539,7 +539,11 @@ def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, til
     steps T and adds colour), "slots": slots read, per tile up to its last
     needed element, "rows": distinct gaussian ids among those slots,
     "warp_steps": the sum over 32-pixel warps of their longest pixel's
-    pairs (what a warp per 32 pixels must step through), "longest": the
+    pairs (what a warp of two pixel rows must step through),
+    "warp_steps_masked": the steps of K2's warps (8x4 pixels,
+    blend_ops.WARP_PIXELS) through the rows that have the warp's bit in
+    their mask (blend_ops.warp_masks_plain) while a pixel of the warp still
+    needs pairs, "longest": the
     most slots one tile needs, "pairs_batch": P_batch, the pairs the TPU
     kernels' batch-granular T must evaluate (256 a slot, for each tile's
     slots up to the end of the batch at whose start every pixel is below
@@ -565,6 +569,9 @@ def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, til
     if in_image:
         done |= (px_i >= config.width) | (py_i >= config.height)
     pairs = torch.zeros((num_tiles, p), dtype=torch.int64, device=device)
+    warp_steps_masked = torch.zeros((), dtype=torch.int64, device=device)
+    warp_bits = torch.arange(p // 32, device=device)
+    warp_pixels = blend_ops.WARP_PIXELS.to(device)
     # Eligible pairs among P, and among the pairs past each pixel's stop
     # that a batch-granular T still evaluates.
     eligible = torch.zeros(num_tiles, dtype=torch.int64, device=device)
@@ -598,6 +605,10 @@ def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, til
         todo = ~done[act]
         elig = (f <= 0.0) & (alpha >= cutoff)
         pairs[act] += todo.to(torch.int64)
+        mask = blend_ops.warp_masks_plain(torch.cat([row[:, :9], galpha], dim=1), tiles[act],
+                                          config)
+        warp_todo = todo[:, warp_pixels].any(dim=2)
+        warp_steps_masked += (warp_todo & ((mask[:, None].long() >> warp_bits) & 1).bool()).sum()
         eligible[act] += (elig & todo).sum(dim=1)
         eligible_past[act] += (elig & ~todo).sum(dim=1)
         t_act = trans[act]
@@ -623,6 +634,7 @@ def blend_work(rows, index, ranges, config: RenderConfig, *, in_image: bool, til
     return {"pairs": n_pairs, "eligible": n_eligible, "ops": ops, "slots": int(per_tile.sum()),
             "rows": distinct_rows(per_tile),
             "warp_steps": int(pairs.reshape(num_tiles, p // 32, 32).amax(dim=2).sum()),
+            "warp_steps_masked": int(warp_steps_masked),
             "longest": int(per_tile.max()) if num_tiles else 0,
             "pairs_batch": n_batch, "eligible_past": int(eligible_past.sum()),
             "ops_batch": ops + FLOPS_PER_PAIR * (n_batch - n_pairs)

@@ -34,6 +34,16 @@
 // - A pair is skipped, expf and all, when f > 0 or f < thr (the row's skip
 //   threshold, blend_rows.cuh): such a pair is ineligible, so the result
 //   cannot change.
+// - Each warp (an 8x4 block of pixels, blend_rows.cuh: warp_pixel) walks
+//   only the stage's rows it can see.  The thread that stages a row also
+//   sets its warp mask (blend_rows.cuh: warp_mask, exact on each of the
+//   warp's four pixel rows, with an outward margin); after the stage's
+//   barrier each warp compacts the rows whose bit it holds into a list of
+//   row numbers (eight ballots) and runs the pair loop over that list.  A
+//   cleared bit means f < thr at every pixel of the warp, a pair the loop
+//   skips anyway, and the list keeps the stage's order: the image is the
+//   same bit for bit, and most rows of a tile's list reach only a few of
+//   its warps.
 // - One pixel a thread: two pixels a thread (one shared row read for two
 //   pairs) measured slower at garden30k_1080p (PERF.md, K2 findings).
 //
@@ -54,11 +64,16 @@ blend_tiles_kernel(const float2* __restrict__ pos, const float* __restrict__ cov
                    const int64_t* __restrict__ ranges, int grid_w, int width, int height,
                    float alpha_cutoff, float t_stop, float* __restrict__ out) {
   __shared__ Batch s_batch[2];
+  __shared__ uint8_t s_mask[2][kStage];       // each staged row's warp mask
+  __shared__ uint8_t s_list[kWarps][kStage];  // each warp's rows of the stage
 
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
-  const int px_i = (tile % grid_w) * kTile + t % kTile;
-  const int py_i = (tile / grid_w) * kTile + t / kTile;
+  const int warp = t / 32, lane = t % 32;
+  const int x0 = (tile % grid_w) * kTile, y0 = (tile / grid_w) * kTile;
+  const int2 pix = warp_pixel(t);
+  const int px_i = x0 + pix.x;
+  const int py_i = y0 + pix.y;
   const float px = static_cast<float>(px_i);
   const float py = static_cast<float>(py_i);
   const int64_t start = ranges[2 * tile];
@@ -77,20 +92,28 @@ blend_tiles_kernel(const float2* __restrict__ pos, const float* __restrict__ cov
   for (int64_t k0 = start; k0 < end; k0 += kStage, buf ^= 1) {
     Batch& b = s_batch[buf];
     cp_async_wait_all();  // this thread's copies of batch k0
-    if (k0 + t < end) finish_frame_row(b, t, alpha_cutoff);
-    // Barrier: the batch is visible to every pixel, and every pixel is past
-    // the previous batch, so its buffer is free; and the block-wide exit
-    // (nothing is in flight here).
+    if (k0 + t < end) {
+      finish_frame_row(b, t, alpha_cutoff);
+      s_mask[buf][t] = static_cast<uint8_t>(
+          warp_mask(b, t, static_cast<float>(x0), static_cast<float>(y0)));
+    }
+    // Barrier: the batch and its masks are visible to every pixel, and every
+    // pixel is past the previous batch, so its buffer is free; and the
+    // block-wide exit (nothing is in flight here).
     if (!__syncthreads_or(!done)) break;
     const int64_t k1 = k0 + kStage;
     if (k1 + t < end) fetch_frame_row(s_batch[buf ^ 1], t, next_idx, pos, cov, color);
     cp_async_commit();
     next_idx = k1 + kStage + t < end ? index[k1 + kStage + t] : kSentinel;
-    if (done) continue;
+    if (__all_sync(0xFFFFFFFFu, done)) continue;
 
     const int n = static_cast<int>(end - k0 < kStage ? end - k0 : kStage);
-#pragma unroll 2  // measured faster than 1 and 4 at garden30k_1080p
-    for (int j = 0; j < n; ++j) {
+    uint8_t* list = s_list[warp];
+    const int count = compact_warp_rows(s_mask[buf], n, warp, lane, list);
+    if (done) continue;
+#pragma unroll 4  // measured faster than 2 at garden30k_1080p
+    for (int i = 0; i < count; ++i) {
+      const int j = list[i];
       const float4 g = b.geo[j];
       const float2 g2 = b.geo2[j];
       const float dx = g.x - px;

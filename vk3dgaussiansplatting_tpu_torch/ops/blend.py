@@ -199,6 +199,63 @@ def blend_rows_plain(
     return assemble_tile_colors(color, config)
 
 
+# csrc/blend_rows.cuh's kSkipMargin, kMaskMargin, kMinConic and kWarps.
+SKIP_MARGIN = 1e-3
+MASK_MARGIN = 2.0**-16
+MIN_CONIC = 1e-30
+WARPS = 8
+# K2's warps (csrc/blend_rows.cuh:warp_pixel): warp w covers the tile's
+# columns 8(w % 2) .. + 7 and rows 4(w // 2) .. + 3; WARP_PIXELS[w, l] is
+# lane l's pixel v * 16 + u.
+_LANE = torch.arange(32)
+WARP_PIXELS = torch.stack([(4 * (w // 2) + _LANE // 8) * 16 + 8 * (w % 2) + _LANE % 8
+                           for w in range(WARPS)])
+
+
+def warp_masks_plain(rows: torch.Tensor, tiles: torch.Tensor, config: RenderConfig
+                     ) -> torch.Tensor:
+    """K2's warp mask of each row (csrc/blend_rows.cuh:warp_mask), in the
+    kernel's float32 arithmetic and order, without its FMA contraction and
+    with an exact division for the kernel's fast one.
+
+    rows: [R, 10] float32 feature rows (pack_feature_table's columns; a
+    dead row's galpha is 0); tiles: [R] int64, the tile each row is
+    blended in.  Returns [R] uint8: bit w is set unless f < thr at every
+    pixel of warp w (WARP_PIXELS[w]), judged by f's largest value on each
+    of its four pixel rows (at the vertex clamped to its eight columns)
+    against thr less MASK_MARGIN times the size of f's terms.  thr > 0
+    (dead rows) gives 0; a conic that is not negative definite or has
+    |a'| < MIN_CONIC, a non-finite value or a margin out of float range
+    gives 0xFF."""
+    f32 = dict(dtype=torch.float32, device=rows.device)
+    ts = config.tile_size
+    x0 = ((tiles % config.grid_width) * ts).to(torch.float32)
+    y0 = ((tiles // config.grid_width) * ts).to(torch.float32)
+    gx, gy, a, b, c, galpha = (rows[:, k] for k in (0, 1, 2, 3, 4, 9))
+    thr = torch.log(torch.tensor(config.alpha_cutoff, **f32) / galpha) - SKIP_MARGIN
+    lo, hi = gx - (x0 + (ts - 1)), gx - x0
+    mid_l, mid_r = gx - (x0 + 7), gx - (x0 + 8)
+    e = (y0[:, None] + torch.arange(ts, **f32)) - gy[:, None]  # dy of each pixel row
+    mx = torch.maximum(lo.abs(), hi.abs())
+    my = torch.maximum(e[:, 0].abs(), e[:, -1].abs())
+    lim = thr - MASK_MARGIN * ((b.abs() * my - a * mx) * mx - c * my * my)
+    a_, b_, c_ = a[:, None], b[:, None], c[:, None]
+    v, be, ce2 = (-0.5 * b / a)[:, None] * e, b_ * e, c_ * e * e
+
+    def peak(lo, hi):  # [R, 4 bands]; fminf/fmaxf: a NaN operand is dropped
+        dx = torch.fmin(torch.fmax(v, lo[:, None]), hi[:, None])
+        p = (a_ * dx + be) * dx + ce2
+        return torch.fmax(torch.fmax(p[:, 0::4], p[:, 1::4]), torch.fmax(p[:, 2::4], p[:, 3::4]))
+
+    peaks = torch.stack([peak(mid_l, hi), peak(lo, mid_r)], dim=2).reshape(-1, WARPS)
+    keep = ~(peaks < lim[:, None])
+    mask = (keep.to(torch.int32) << torch.arange(WARPS, device=rows.device)).sum(dim=1)
+    mask = torch.where(lim > -1e30, mask, 0xFF)  # also any non-finite value
+    definite = (a < -MIN_CONIC) & (c < 0) & (4.0 * a * c > b * b)
+    mask = torch.where(definite, mask, 0xFF)
+    return torch.where(thr > 0, 0, mask).to(torch.uint8)
+
+
 def blend_flat_plain(
     table: torch.Tensor,
     index: torch.Tensor,
