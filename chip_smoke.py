@@ -32,7 +32,8 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            1280x720, capacity 4,245,663), scale calibrated to 3,487,911 live
            elements ±3% (K7's counts mode); 3 warm-up + 20 timed frames with
            the camera nudged each frame; median ms/frame and per-pass ms from
-           CUDA events; K7, the depth order, K1, the radix sort and K2
+           CUDA events; K7, the depth order, K1, the radix sort (with two
+           columns: "radix_two_column") and K2
            launch once a frame, the radix kernels (LAUNCHES["radix_kernels"])
            are the tile key's planned_kernels a sort and
            DEPTH_ORDER_KERNELS a depth order, no feature table is built, and the
@@ -65,15 +66,18 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            bit for bit; its time, plain time and bound (316 B a
            gaussian), K7's counts
            mode and the wrapper's host µs a call.  The radix sort on the
-           frame's own keygen output five times (equal results) and against
-           its plain version and the stable torch.sort it replaced, bit for
-           bit, its input unchanged; its time, the plain version's,
-           torch.sort's (library_ms), its kernels by kind from the profiler
-           (setup, histogram, scatter), the bound (24 B a live slot read +
-           24 B a slot written), the passes' floor (`radix_floor_bytes`:
-           ~193 B a live slot at 6 passes) and the copy yardstick (copy_ of
-           the live slots' [3, n] uint32 records: what one pass must move,
-           at the card's attainable rate).  The depth order
+           frame's own keygen output (tile and index, no depth) five times
+           (equal results) and against its plain version and the stable
+           torch.sort it replaced, bit for bit, its input unchanged; its
+           time, the plain version's, torch.sort's (library_ms), its
+           kernels by kind from the profiler (setup, histogram, scatter),
+           the bound (8 B a column of a live slot read + 8 B a column of a
+           slot written), the passes' floor (`radix_floor_bytes`) and the
+           copy yardstick (copy_ of the live slots' [2, n] uint32 records:
+           what one pass must move, at the card's attainable rate); then
+           the same with the depth column K1 wrote (three columns,
+           `check_radix_three_column`), tile and index equal to the
+           two-column sort's.  The depth order
            (`check_depth_order`) on the frame's own K7 rows and scan five
            times (equal results) and against its plain version bit for
            bit, its input unchanged; its time, the plain version's, the
@@ -313,6 +317,8 @@ COUNTERS = (
     "keygen_count", "radix_sort",
     # keygen's rows put in depth order (the radix path's keygen, once a frame).
     "depth_order",
+    # radix sorts with no depth column (the uncapped radix frame's, once a frame).
+    "radix_two_column",
 )
 
 
@@ -795,9 +801,11 @@ def phase_fixtures() -> None:
 
 
 # The kernels the uncapped frame launches once each; the bitonic path's.
-UNCAPPED_PATH = ("keygen_project", "depth_order", "expand_rows", "radix_sort", "blend_tiles")
+UNCAPPED_PATH = ("keygen_project", "depth_order", "expand_rows", "radix_sort", "radix_two_column",
+                 "blend_tiles")
 BITONIC_PATH = tuple(k for k in UNCAPPED_PATH
-                     if k not in ("depth_order", "radix_sort")) + ("bitonic_sort",)
+                     if k not in ("depth_order", "radix_sort", "radix_two_column")) + (
+                         "bitonic_sort",)
 
 
 class SortCalls(torch.overrides.TorchFunctionMode):
@@ -964,35 +972,37 @@ def torch_sort_elements(el, num_tiles: int, with_perm: bool = False, key: str = 
     (library_ms) and a reference here; no module of the port calls it."""
     tile = torch.where(el.tile == SENTINEL, num_tiles, el.tile)
     _, perm = torch.sort(tile if key == "tile" else (tile << 32) | el.depth, stable=True)
-    out = keygen.SortElements(el.tile[perm], el.depth[perm], el.index[perm], el.count)
+    out = keygen.SortElements(el.tile[perm], None if el.depth is None else el.depth[perm],
+                              el.index[perm], el.count)
     return (out, perm) if with_perm else out
 
 
 def radix_floor_bytes(n: int, e: int, num_tiles: int, counted: bool, with_perm: bool,
-                      key: str = "tile_depth") -> int:
-    """The bytes csrc/radix.cu's kernels move for n sorted slots of e: the
-    setup reads and writes the tail's three columns (and its permutation);
-    the histogram reads the int64 depth (the full key) and tile of the
-    prefix once and zeroes the status words (passes x partitions x 256 x 4
-    B); a scatter reads and writes the 12-byte records (the first reads the
+                      key: str = "tile_depth", cols: int = 3) -> int:
+    """The bytes csrc/radix.cu's kernels move for n sorted slots of e with
+    records of `cols` columns (3: depth, tile', payload; 2: no depth): the
+    setup reads and writes the tail's columns (and its permutation); the
+    histogram reads the int64 depth (the full key) and tile of the prefix
+    once and zeroes the status words (passes x partitions x 256 x 4 B); a
+    scatter reads and writes the 4 B a column records (the first reads the
     int64 columns, the index only without the permutation; the last writes
     the int64 columns and the permutation, whose index it gathers), and
     each live partition writes its 256 status words twice and reads 1 KB of
     its predecessor's and the 1 KB digit table."""
     passes = len(radix_kernel.schedule(num_tiles, key))
     parts, live_parts = -(-e // radix_kernel.TILE), -(-n // radix_kernel.TILE)
-    tail = (48 + 8 * with_perm) * (e - n) if counted else 0
+    tail = (16 * cols + 8 * with_perm) * (e - n) if counted else 0
     hist = (8 if key == "tile" else 16) * n + 4 * radix_kernel.BINS * passes * parts
-    scatter = (16 if with_perm else 24) * n + 24 * n * (passes - 1) + 24 * n
+    scatter = (8 * cols - 8 * with_perm) * n + 8 * cols * n * (passes - 1) + 8 * cols * n
     lookback = 4 * 4 * radix_kernel.BINS * passes * live_parts
     return tail + hist + scatter + 16 * n * with_perm + lookback
 
 
-def copy_yardstick_ms(n: int) -> float:
-    """A device copy of n 12-byte records (`copy_` of a [3, n] uint32
-    buffer): the card's attainable rate for what one scatter pass must read
-    and write."""
-    src = torch.empty((3, n), dtype=torch.int32, device="cuda")
+def copy_yardstick_ms(n: int, cols: int = 3) -> float:
+    """A device copy of n records of `cols` uint32 columns (`copy_` of a
+    [cols, n] uint32 buffer): the card's attainable rate for what one
+    scatter pass must read and write."""
+    src = torch.empty((cols, n), dtype=torch.int32, device="cuda")
     dst = torch.empty_like(src)
     return cuda_ms(lambda: dst.copy_(src), 20)
 
@@ -1000,17 +1010,24 @@ def copy_yardstick_ms(n: int) -> float:
 RADIX_REPEATS = 5
 
 
+def _same(a: torch.Tensor | None, b: torch.Tensor | None) -> bool:
+    """Equal columns, or both absent (a sort's depth without the column)."""
+    return a is b is None or (a is not None and b is not None and torch.equal(a, b))
+
+
 def check_radix(call, what: str, timed: bool = True) -> dict:
     """The radix sort on one call's own inputs, RADIX_REPEATS times with
     equal results (a look-back ordering fault shows as a run that
     differs), against its plain version and the stable torch.sort, bit for
-    bit (the permutation too), its input unchanged; with `timed`, its
-    times, its floor and bound, and the copy yardstick."""
+    bit (the permutation too; the depth where the call carries one), its
+    input unchanged; with `timed`, its times, its floor and bound, and the
+    copy yardstick."""
     (tile, depth, index, count, num_tiles), kw = call
     with_perm = kw.get("with_perm", False)
     key = kw.get("key", "tile_depth")
+    cols = 2 if depth is None else 3
     el = keygen.SortElements(tile, depth, index, count)
-    before = [x.clone() for x in el[:3]]
+    before = [x.clone() for x in el[:3] if x is not None]
     kernels = LAUNCHES["radix_kernels"]
     got = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm,
                                   key=key)
@@ -1018,7 +1035,7 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
     for k in range(1, RADIX_REPEATS):
         again = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm,
                                         key=key)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        if not all(_same(a, b) for a, b in zip(got, again)):
             raise RuntimeError(f"{what}: radix_sort run {k} differs from run 0 on the same list")
     del again
     refs = {"plain version": sort.sort_elements_radix_plain(el, num_tiles, with_perm=with_perm,
@@ -1027,17 +1044,19 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
     for ref_name, ref in refs.items():
         ref_cols = [*ref[0][:3], ref[1]] if with_perm else list(ref[:3])
         for col, a, b in zip(("tile", "depth", "index", "permutation"), got, ref_cols):
-            if not torch.equal(a, b):
-                raise RuntimeError(f"{what}: radix_sort differs from the {ref_name} in {col} at "
-                                   f"{int((a != b).sum())} of {a.numel()} slots")
+            if not _same(a, b):
+                at = "" if a is None or b is None else f" at {int((a != b).sum())} slots"
+                raise RuntimeError(f"{what}: radix_sort differs from the {ref_name} in {col}{at}")
     plain = refs["plain version"]
     plain_cols = [*plain[0][:3], plain[1]] if with_perm else list(plain[:3])
-    err = max((int((a - b).abs().max()) for a, b in zip(got, plain_cols) if a.numel()), default=0)
-    if not all(torch.equal(a, b) for a, b in zip(before, el[:3])):
+    err = max((int((a - b).abs().max()) for a, b in zip(got, plain_cols)
+               if a is not None and a.numel()), default=0)
+    if not all(torch.equal(a, b) for a, b in zip(before, (x for x in el[:3] if x is not None))):
         raise RuntimeError(f"{what}: radix_sort wrote its input")
     e = tile.shape[0]
     n = e if count is None else min(max(int(count), 0), e)
-    res = {"max_abs_err": err, "e": e, "live": n, "with_perm": with_perm, "key": key}
+    res = {"max_abs_err": err, "e": e, "live": n, "with_perm": with_perm, "key": key,
+           "columns": cols}
     if not timed:
         return res
     del refs, plain, plain_cols, got
@@ -1056,26 +1075,62 @@ def check_radix(call, what: str, timed: bool = True) -> dict:
         "device_ms": device_kinds(run, {"setup": r"radix_setup", "histogram": r"radix_histogram",
                                         "scatter": r"radix_scatter"}),
         "digit_passes": passes,
-        # The function: 24 B a live slot read, 24 B a slot written (and the
-        # permutation's 8), the count.
-        **bound(24 * n + (32 if with_perm else 24) * e + 8, 0),
-        "passes_floor_ms": radix_floor_bytes(n, e, num_tiles, count is not None, with_perm, key)
-        / PEAK_BYTES_PER_S * 1e3,
-        "copy_ms": copy_yardstick_ms(n),
+        # The function: 8 B a column of a live slot read, 8 B a column of a
+        # slot written (and the permutation's 8), the count.
+        **bound(8 * cols * n + (8 * cols + 8 * with_perm) * e + 8, 0),
+        "passes_floor_ms": radix_floor_bytes(n, e, num_tiles, count is not None, with_perm, key,
+                                             cols) / PEAK_BYTES_PER_S * 1e3,
+        "copy_ms": copy_yardstick_ms(n, cols),
     })
     scatter = res["device_ms"].get("scatter", {}).get("ms", float("nan"))
     res["scatter_pass_ms"] = scatter / passes
     log(f"check {what} radix: radix_sort x{RADIX_REPEATS} equal, == plain == stable torch.sort "
-        f"bit for bit ({n} sorted of {e} slots, key {key}, {passes} digit passes, {kernels:g} "
-        f"kernels"
+        f"bit for bit ({n} sorted of {e} slots, key {key}, {cols} columns, {passes} digit "
+        f"passes, {kernels:g} kernels"
         f"{', with the permutation' if with_perm else ''}), its input unchanged; kernel "
         f"{res['ms']:.3f} ms vs plain {res['plain_ms']:.3f} ms, torch.sort "
         f"{res['library_ms']:.3f} ms; by kind {res['device_ms']}; bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']}, {res['bound_bytes']} B), the passes' floor "
-        f"{res['passes_floor_ms']:.4f} ms; yardstick copy_ of [3, {n}] uint32 "
+        f"{res['passes_floor_ms']:.4f} ms; yardstick copy_ of [{cols}, {n}] uint32 "
         f"{res['copy_ms']:.4f} ms, a scatter pass {res['scatter_pass_ms']:.4f} ms "
         f"({res['copy_ms'] / res['scatter_pass_ms']:.0%} of the copy's rate)")
     return res
+
+
+def three_column_call(args) -> tuple:
+    """The uncapped frame's tile-key sort call (two columns: its depth is
+    None) with the depth column it left out, rebuilt by K1 on the frame's
+    own rows and scan (`expand_elements`, whose tile and index must be the
+    call's)."""
+    (tile, depth, index, count, num_tiles), kw = args["radix_sort"]
+    if depth is not None:
+        raise RuntimeError("the uncapped radix frame's sort carried a depth column")
+    (cols, cum, capacity, grid_w), kx = args["expand_elements"]
+    k1_tile, k1_depth, k1_index, _count = expand_kernel.expand_elements(cols, cum, capacity,
+                                                                        grid_w, **kx)
+    if not (torch.equal(k1_tile, tile) and torch.equal(k1_index, index)):
+        raise RuntimeError("K1 rerun on the frame's rows differs from the frame's sort input")
+    return (tile, k1_depth, index, count, num_tiles), kw
+
+
+def check_radix_three_column(args, what: str, two: dict) -> dict:
+    """The frame's tile-key sort with three columns beside its own two
+    (`two`, `check_radix` on the frame's call): tile and index bit for bit,
+    and its `check_radix` times in the same process."""
+    call = three_column_call(args)
+    (tile, depth, index, count, num_tiles), kw = call
+    got3 = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, **kw)
+    got2 = radix_kernel.radix_sort(tile, None, index, count, num_tiles, **kw)
+    if got2[1] is not None or not all(torch.equal(got2[k], got3[k]) for k in (0, 2)):
+        raise RuntimeError(f"{what}: the two-column sort's tile and index differ from the "
+                           "three-column sort's")
+    del got2, got3
+    three = check_radix(call, f"{what} three columns")
+    log(f"check {what} radix columns: two == three in tile and index bit for bit; two columns "
+        f"{two['ms']:.4f} ms (scatters {two['device_ms'].get('scatter')}), three "
+        f"{three['ms']:.4f} ms (scatters {three['device_ms'].get('scatter')}); floors "
+        f"{two['passes_floor_ms']:.4f} / {three['passes_floor_ms']:.4f} ms")
+    return three
 
 
 def depth_order_floor_bytes(n: int, m: int) -> int:
@@ -1175,21 +1230,25 @@ def radix_phases(call, what: str) -> list[dict]:
     lib.vk3d_radix_sort.argtypes, lib.vk3d_radix_sort.restype = _build.SIGNATURES["vk3d_radix_sort"]
     lib.vk3d_radix_phases.argtypes, lib.vk3d_radix_phases.restype = [ctypes.c_void_p], ctypes.c_int
     e = tile.shape[0]
-    out = [torch.empty_like(tile) for _ in range(3 + with_perm)]
+    out = [None if x is None else torch.empty_like(x)
+           for x in (tile, depth, index, *([tile] if with_perm else []))]
     scratch = torch.empty(radix_kernel.scratch_words(e, num_tiles, key), dtype=torch.int32,
                           device=tile.device)
     launched = ctypes.c_int64(0)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     err = lib.vk3d_radix_sort(
-        tile.data_ptr(), depth.data_ptr(), index.data_ptr(),
-        None if count is None else count.data_ptr(), e, num_tiles, radix_kernel.SORT_KEYS[key],
-        scratch.data_ptr(),
-        *(x.data_ptr() for x in out[:3]), out[3].data_ptr() if with_perm else None,
+        *(ptr(x) for x in (tile, depth, index, count)), e, num_tiles,
+        radix_kernel.SORT_KEYS[key], scratch.data_ptr(), *(ptr(x) for x in out[:3]),
+        out[3].data_ptr() if with_perm else None,
         ctypes.byref(launched), tile.device.index, torch.cuda.current_stream().cuda_stream)
     if err:
         raise _build.cuda_error(err, "radix_sort (phases build)")
     want = radix_kernel.radix_sort(tile, depth, index, count, num_tiles, with_perm=with_perm,
                                    key=key)
-    if not all(torch.equal(a, b) for a, b in zip(out, want)):
+    if not all(_same(a, b) for a, b in zip(out, want)):
         raise RuntimeError(f"{what}: the phases build of the radix sort differs from the kernel")
     stamps = np.zeros((radix_kernel.MAX_PASSES, 4096, RADIX_PHASE_SLOTS), np.uint64)
     err = lib.vk3d_radix_phases(stamps.ctypes.data)
@@ -1215,14 +1274,15 @@ def radix_phases(call, what: str) -> list[dict]:
             "stage_wait_us": round(float(b[:, RADIX_PHASE_WAIT].mean() / per_ns / 1e3), 2),
             "partitions_per_block": round(parts / len(np.unique(block >> 1)), 2),
         })
-    log(f"radix phases {what} ({n} sorted, {parts} partitions; instrumented build, µs a "
-        f"partition): {rows}")
+    log(f"radix phases {what} ({n} sorted, {parts} partitions, {3 if depth is not None else 2} "
+        f"columns; instrumented build, µs a partition): {rows}")
     return rows
 
 
 def check_radix_edge_cases() -> None:
     """The radix sort on lists built to hit its edges, against its plain
-    version and the stable torch.sort (`check_radix`), then two different
+    version and the stable torch.sort (`check_radix`), each on its key and
+    on the tile key without the depth column, then two different
     lists sorted back to back, so that the second sort's scratch (the
     caching allocator's same block) holds the first's look-back flags."""
     rng = np.random.default_rng(9)
@@ -1273,6 +1333,9 @@ def check_radix_edge_cases() -> None:
         t, c = on_card(cols, count)
         check_radix(((*t, c, num_tiles), {"with_perm": with_perm}), f"radix edge case {what}",
                     timed=False)
+        # The tile key without the depth column: two-column records.
+        check_radix(((t[0], None, t[2], c, num_tiles), {"with_perm": with_perm, "key": "tile"}),
+                    f"radix edge case {what}, two columns", timed=False)
     # Back to back on one stream, the same size, no synchronisation between.
     size = 100 * tile_size + 17
     lists = [on_card(keygen_list(8160, size, live), live) for live in (size - 999, 61 * tile_size)]
@@ -1285,19 +1348,21 @@ def check_radix_edge_cases() -> None:
                 raise RuntimeError(f"radix back to back: list {k} (with_perm {with_perm}) differs "
                                    f"from the stable torch.sort")
     log(f"check: radix_sort x{RADIX_REPEATS} equal == plain == stable torch.sort bit for bit on "
-        f"{len(cases)} edge cases ({', '.join(cases)}; interleaved: {inter_live} live of 70,001), "
+        f"{len(cases)} edge cases, on the full key and on the tile key with two columns "
+        f"({', '.join(cases)}; interleaved: {inter_live} live of 70,001), "
         f"inputs unchanged; two {size}-slot lists back to back == torch.sort")
 
 
 def check_radix_ptxas() -> list[str]:
     """ptxas on the radix sort's kernels (the setup, the histogram of each
-    key, five scatter instantiations, the rows' prep and scan): no spills
-    and no stack, or the run fails; and the kernel's constants against the
-    wrapper's copies."""
+    key, nine scatter instantiations: first, last, both or neither with
+    three and with two columns, and the rows' last pass; the rows' prep and
+    scan): no spills and no stack, or the run fails; and the kernel's
+    constants against the wrapper's copies."""
     config = radix_kernel.check_kernel_config()
     entries = [" ".join(x) for x in ptxas_report() if x[0].startswith("radix_")]
-    if len(entries) != 10:
-        raise RuntimeError(f"ptxas reported {len(entries)} radix kernels, not 10: {entries}")
+    if len(entries) != 14:
+        raise RuntimeError(f"ptxas reported {len(entries)} radix kernels, not 14: {entries}")
     for entry in entries:
         if re.search(r"[1-9]\d* bytes (stack frame|spill)", entry):
             raise RuntimeError(f"radix kernel spills or uses a stack: {entry}")
@@ -1801,6 +1866,9 @@ def run_capped(name: str, mult: float):
     check_radix_kernels(f"{name} capped", call_plan(cap.args["radix_sort"]),
                         launches["radix_sort"], read_kernels()["radix_sort"],
                         launches["depth_order"])
+    if launches["radix_two_column"]:
+        raise RuntimeError(f"{name} capped: {launches['radix_two_column']} sorts left out the "
+                           "depth the capped blend reads")
     tables = cap.counts.get("pack_feature_table", 0)
     if tables:
         raise RuntimeError(f"{name} capped: the capped frames built {tables} feature tables")
@@ -2107,8 +2175,9 @@ def dist_rank(rank: int, world: int, name: str, mult: float, warm: int, timed: i
     radix_kernels = check_radix_kernels(f"rank {rank}", call_plan(cap.args["radix_sort"]),
                                         launches["radix_sort"], read_kernels()["radix_sort"],
                                         launches["depth_order"])
-    if launches["depth_order"]:
-        raise RuntimeError(f"rank {rank}: the distributed frame put its rows in depth order")
+    if launches["depth_order"] or launches["radix_two_column"]:
+        raise RuntimeError(f"rank {rank}: the distributed frame put its rows in depth order or "
+                           "sorted without the depth")
     # One more frame at the last camera on every rank, under the profiler.
     keygen_pass = check_keygen_pass(
         device_ops(lambda: frame(shard, view, proj, cam.position)), f"rank {rank}")
@@ -2446,6 +2515,8 @@ def main() -> None:
             args, name, [m for m in SphericalHarmonicsMode if m != renderer.config.sh_mode]
             if i == 0 else ()))
         results[name]["radix_sort"] = check_radix(args["radix_sort"], name)
+        results[name]["radix_three_column"] = check_radix_three_column(
+            args, name, results[name]["radix_sort"])
         results[name]["depth_order"] = check_depth_order(args["depth_order"], name)
         # The kernels a sort that the uncapped frames launched.
         results[name]["radix_sort"]["kernels_per_sort"] = radix_kernels

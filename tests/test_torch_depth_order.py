@@ -10,11 +10,13 @@ equal depth keys sharing tiles, many rows with no slot, a total above the
 capacity (a gaussian straddling it) and the prefilter's thresholds; the
 depth-ordered expansion against JAX's index-order list stably reordered by
 depth; the row order against a numpy model on crafted rows; the keys'
-schedules; which frame paths take the depth order.  On the card (`cuda`
-marker, skipped without one): the row order and the tile-key sort bit for
-bit with their plain versions at garden's and train7k's sizes, the
-launches a frame on each path, and no spill or stack in ptxas's report of
-the radix kernels.
+schedules; which frame paths take the depth order; which sort a depth
+column (the uncapped radix frame's does not, and its image is the
+three-column frame's).  On the card (`cuda` marker, skipped without one):
+the row order and the tile-key sort bit for bit with their plain versions
+at garden's and train7k's sizes, the two-column sort against its plain
+version and the three-column sort, the launches a frame on each path, and
+no spill or stack in ptxas's report of the radix kernels.
 """
 
 import dataclasses
@@ -35,10 +37,11 @@ from vk3dgaussiansplatting_tpu.ops import ranges as jranges
 from vk3dgaussiansplatting_tpu.ops import sort as jsort
 from vk3dgaussiansplatting_tpu.render.camera import Camera
 from vk3dgaussiansplatting_tpu.scenes import synthetic as jsyn
-from vk3dgaussiansplatting_tpu_torch import Renderer, convert
+from vk3dgaussiansplatting_tpu_torch import Renderer, convert, pipeline
 from vk3dgaussiansplatting_tpu_torch import RenderConfig as TorchConfig
 from vk3dgaussiansplatting_tpu_torch.core.config import SENTINEL
 from vk3dgaussiansplatting_tpu_torch.core.config import SortAlgorithm as TorchSort
+from vk3dgaussiansplatting_tpu_torch.ops import blend as tblend
 from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
 from vk3dgaussiansplatting_tpu_torch.ops import ranges as tranges
 from vk3dgaussiansplatting_tpu_torch.ops import sort as tsort
@@ -288,6 +291,60 @@ def test_frame_paths_take_the_depth_order(algo, monkeypatch):
     assert calls == {"depth_order": int(radix), "keys": ["tile"] if radix else []}
 
 
+def _small_scene(cfg):
+    scene = synthetic.SimpleTestGaussiansScene(aspect=cfg.aspect)
+    scene.init()
+    scene.camera.set_aspect(cfg.aspect)
+    return scene
+
+
+@pytest.mark.parametrize("path", ["uncapped", "static_capped", "temporal_capped", "chained",
+                                  "bitonic"])
+def test_sorted_depth_only_where_it_is_read(path, monkeypatch):
+    """The uncapped radix frame sorts (tile, index) alone: its sorted list
+    has no depth, and its image equals, bit for bit, the image of the same
+    frame whose sort keeps three columns.  The capped frames (static cap,
+    temporal caps, the chained plan), which read the sorted depth, and the
+    bitonic frame get a depth column."""
+    cfg = TorchConfig(width=64, height=48, capacity_slack_per_tile=16,
+                      sort_algorithm=TorchSort.BITONIC if path == "bitonic" else TorchSort.AUTO,
+                      capacity_pow_two=True)
+    if path in ("static_capped", "temporal_capped", "chained"):
+        cfg = dataclasses.replace(cfg, blend_depth_cap=384, blend_cap_max=4096)
+    sorted_lists = []
+    real_sort = tsort.sort_elements
+
+    def spy(*a, **k):
+        out = real_sort(*a, **k)
+        sorted_lists.append(out)
+        return out
+
+    monkeypatch.setattr(tsort, "sort_elements", spy)
+    scene = _small_scene(cfg)
+    r = Renderer(cfg, device="cpu")
+    r.init_for_scene(scene.gaussians())
+    view, proj = scene.camera.matrices()
+    args = (r.table, view, proj, scene.camera.position)
+    if path in ("uncapped", "static_capped"):
+        out = pipeline.render_frame(*args, config=cfg, capacity=r.capacity)
+    elif path == "chained":
+        pipeline.ChainedTemporalPlan(cfg, r.capacity, device="cpu").frame(*args)
+    else:
+        out = r.draw(scene.camera)
+    (el,) = sorted_lists
+    assert int(el.count) > 0
+    if path != "uncapped":
+        assert el.depth is not None and el.depth.shape == el.tile.shape
+        return
+    assert el.depth is None
+    three, ranges, frame = pipeline._sorted_frame(*args, cfg, r.capacity, None)
+    assert three.depth is not None
+    assert torch.equal(el.tile, three.tile) and torch.equal(el.index, three.index)
+    image = tblend.blend_tiles(three, ranges, frame, cfg)
+    assert torch.equal(out.image, image)
+    assert out.image_u8[..., :3].any()
+
+
 # ---------------------------------------------------------------- the card
 
 def _needs_card():
@@ -370,10 +427,53 @@ def test_tile_key_sort_matches_plain(case):
                 assert torch.equal(a, b)
 
 
-def _frame_launches(sort_algorithm):
-    """LAUNCHES of one uncapped frame of a small scene on the card."""
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["garden", "garden_no_count", "train7k", "train7k_no_count"])
+def test_two_column_sort_matches_plain_and_three_columns(case):
+    """The tile-key sort without the depth column on the card: tile and
+    index bit for bit with its plain version and with the kernel's
+    three-column sort, at garden's 13,062,311 live of 14,190,624 slots on
+    8,160 tiles and train7k's 3,487,911 of 4,245,663 on 3,600, with and
+    without the count (then with sentinels between live slots); with and
+    without the permutation; the depth None, one "radix_two_column" a sort."""
+    _needs_card()
+    num_tiles, e, live = {"garden": (8160, 14_190_624, 13_062_311),
+                          "train7k": (3600, 4_245_663, 3_487_911)}[case.split("_")[0]]
+    counted = not case.endswith("no_count")
+    rng = np.random.default_rng(e)
+    cols = [np.full(e, SENTINEL, np.int64) for _ in range(3)]
+    cols[0][:live] = rng.integers(0, num_tiles, live)
+    cols[1][:live] = np.sort(rng.integers(0, 1 << 32, live))
+    cols[2][:live] = rng.integers(0, 1 << 23, live)
+    if not counted:
+        dead = rng.random(e) < 0.1
+        for c in cols:
+            c[dead] = SENTINEL
+    el = tkg.SortElements(*(torch.from_numpy(c).cuda() for c in cols),
+                          torch.tensor(live, device="cuda") if counted else None)
+    two = el._replace(depth=None)
+    for with_perm in (False, True):
+        before = _build.LAUNCHES.copy()
+        got = rk.radix_sort(two.tile, None, two.index, two.count, num_tiles,
+                            with_perm=with_perm, key="tile")
+        assert _build.LAUNCHES["radix_two_column"] - before["radix_two_column"] == 1
+        assert (_build.LAUNCHES["radix_kernels"] - before["radix_kernels"]
+                == rk.planned_kernels(num_tiles, counted, key="tile"))
+        three = rk.radix_sort(*el[:3], el.count, num_tiles, with_perm=with_perm, key="tile")
+        assert _build.LAUNCHES["radix_two_column"] - before["radix_two_column"] == 1
+        plain = tsort.sort_elements_radix_plain(two, num_tiles, with_perm=with_perm, key="tile")
+        plain_cols = [*plain[0][:3], plain[1]] if with_perm else list(plain[:3])
+        assert got[1] is None and plain_cols[1] is None
+        for k in (0, 2, 3) if with_perm else (0, 2):
+            assert torch.equal(got[k], three[k]), (case, with_perm, k)
+            assert torch.equal(got[k], plain_cols[k]), (case, with_perm, k)
+
+
+def _frame_launches(sort_algorithm, **cap):
+    """LAUNCHES of one frame of a small scene on the card: uncapped, or
+    with `cap` (blend_depth_cap, ...) the temporal capped frame."""
     cfg = TorchConfig(width=1280, height=720, capacity_slack_per_tile=32,
-                      sort_algorithm=sort_algorithm, capacity_pow_two=True)
+                      sort_algorithm=sort_algorithm, capacity_pow_two=True, **cap)
     scene = synthetic.SimpleTestGaussiansScene(aspect=cfg.aspect)
     scene.init()
     scene.camera.set_aspect(cfg.aspect)
@@ -411,6 +511,30 @@ def test_launches_a_frame_on_each_path():
     assert _build.LAUNCHES["depth_order"] == before["depth_order"]
     assert (_build.LAUNCHES["radix_kernels"] - before["radix_kernels"]
             == rk.planned_kernels(8160, counted=False))
+
+
+@pytest.mark.cuda
+def test_two_column_sort_once_a_frame_on_the_uncapped_radix_path():
+    """"radix_two_column": one a frame on the uncapped radix frame, none on
+    the temporal capped frame, the bitonic frame and the distributed
+    frame's `_sort3`."""
+    _needs_card()
+    got, _ = _frame_launches(TorchSort.AUTO)
+    assert got["radix_two_column"] == 1 and got["radix_sort"] == 1
+    got, _ = _frame_launches(TorchSort.AUTO, blend_depth_cap=384, blend_cap_max=4096)
+    assert got["radix_sort"] >= 1 and "radix_two_column" not in got
+    got, _ = _frame_launches(TorchSort.BITONIC)
+    assert "radix_two_column" not in got
+    before = _build.LAUNCHES.copy()
+    t = torch.full((60_000,), SENTINEL, dtype=torch.int64, device="cuda")
+    d, i = t.clone(), t.clone()
+    t[:50_000] = torch.randint(0, 8160, (50_000,), device="cuda")
+    d[:50_000] = torch.randint(0, 2**32, (50_000,), device="cuda")
+    i[:50_000] = torch.arange(50_000, device="cuda")
+    td._sort3(t, d, i, 8160)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["radix_sort"] == before["radix_sort"] + 1
+    assert _build.LAUNCHES["radix_two_column"] == before["radix_two_column"]
 
 
 @pytest.mark.cuda

@@ -9,9 +9,11 @@ multiple of the kernel's block, all-equal keys, depth keys near 2^32 - 1,
 and lists whose slots past the count are not all SENTINEL (every slot is
 then sorted); `_sort3` on received lists with sentinels between live slots; the
 plain version against a stable `torch.sort` with shuffled ids (stability
-beyond JAX's id tie-break); the digit schedule; the wrapper's guards; no
-`torch.sort` on the CPU frame.  On the card (`cuda` marker, skipped
-without one): the kernel against the plain version and `torch.sort`.
+beyond JAX's id tie-break); the tile key's two-column sort (no depth
+column) against the three-column sort, and the full key refusing it; the
+digit schedule; the wrapper's guards; no `torch.sort` on the CPU frame.
+On the card (`cuda` marker, skipped without one): the kernel against the
+plain version and `torch.sort`.
 """
 
 import jax
@@ -121,6 +123,76 @@ def test_plain_matches_jax(num_tiles):
     }
     for what, (cols, count) in cases.items():
         _check_vs_jax(cols, count, num_tiles, f"{num_tiles} tiles, {what}")
+
+
+def _two_column_cases():
+    """(num_tiles, columns, count) lists for the two-column sort: live
+    prefixes bounded by the count, SENTINEL tails, tails that are not all
+    SENTINEL (a tile, an index, or the depth alone), E = 0 and E = 1, E not
+    a multiple of the partition, no count."""
+    rng = np.random.default_rng(27)
+    live = E * 3 // 5
+    depth_only = _keygen_list(rng, 8160, E, live)
+    depth_only[1][E - 3] = 99  # the depth column alone is live past the count
+    index_only = _keygen_list(rng, 3600, E, live)
+    index_only[2][live + 5] = 4
+    no_count, _ = _interleaved(rng, 8160)
+    return {
+        "prefix, 1080p": (8160, _keygen_list(rng, 8160, E, live), live),
+        "prefix, 720p": (3600, _keygen_list(rng, 3600, E, live), live),
+        "prefix, 4096 tiles": (4096, _keygen_list(rng, 4096, E, live), live),
+        "count 0": (8160, _keygen_list(rng, 8160, E, 0), 0),
+        "count E": (8160, _keygen_list(rng, 8160, E, E), E),
+        "count past E": (3600, _keygen_list(rng, 3600, E, E), E + 7),
+        "prefix ends inside a partition": (8160, _keygen_list(rng, 8160, 2 * rk.TILE,
+                                                              rk.TILE + 77), rk.TILE + 77),
+        "tail not SENTINEL: interleaved": (8160, *_interleaved(rng, 8160)),
+        "tail not SENTINEL: one live slot": (3600, *_one_live_in_tail(rng, 3600)),
+        "tail not SENTINEL: an index": (3600, index_only, live),
+        "tail not SENTINEL: a depth alone": (8160, depth_only, live),
+        "E = 0": (8160, _keygen_list(rng, 8160, 0, 0), 0),
+        "E = 1": (8160, _keygen_list(rng, 8160, 1, 1), 1),
+        "E = 1, count 0": (3600, _keygen_list(rng, 3600, 1, 0), 0),
+        "no count": (8160, no_count, None),
+    }
+
+
+@pytest.mark.parametrize("case", list(_two_column_cases()))
+def test_two_column_sort_matches_three_column(case):
+    """The tile key with no depth column (`sort_elements_radix_plain`, and
+    `sort_elements_xla` on CPU tensors): tile and index equal the
+    three-column sort's bit for bit, with and without the permutation, and
+    the depth comes back None."""
+    num_tiles, cols, count = _two_column_cases()[case]
+    el = _elements(cols, count)
+    two = el._replace(depth=None)
+    for with_perm in (False, True):
+        want = tsort.sort_elements_radix_plain(el, num_tiles, with_perm=with_perm, key="tile")
+        for sort in (tsort.sort_elements_radix_plain, tsort.sort_elements_xla):
+            got = sort(two, num_tiles, with_perm=with_perm, key="tile")
+            what = f"{case}, {sort.__name__}, with_perm {with_perm}"
+            if with_perm:
+                assert torch.equal(got[1], want[1]), what
+                got, ref = got[0], want[0]
+            else:
+                ref = want
+            assert got.depth is None and got.count is el.count, what
+            assert torch.equal(got.tile, ref.tile) and torch.equal(got.index, ref.index), what
+    assert all(np.array_equal(x.numpy(), c) for x, c in zip(el[:3], cols)), f"{case}: input written"
+
+
+def test_full_key_refuses_no_depth():
+    """The (tile, depth) key needs the depth column: the plain version, the
+    dispatch and the kernel's wrapper refuse None before anything runs."""
+    cols = [torch.zeros(8, dtype=torch.int64) for _ in COLS]
+    el = SortElements(cols[0], None, cols[2], torch.tensor(8))
+    for sort in (tsort.sort_elements_radix_plain, tsort.sort_elements_xla):
+        with pytest.raises(ValueError, match="'tile_depth' key sorts by the depth column"):
+            sort(el, 100)
+        with pytest.raises(ValueError, match="'tile_depth' key sorts by the depth column"):
+            sort(el, 100, key="tile_depth", with_perm=True)
+    with pytest.raises(ValueError, match="'tile_depth' key sorts by the depth column"):
+        rk.radix_sort(cols[0], None, cols[2], el.count, 100)
 
 
 def test_sort3_matches_jax():

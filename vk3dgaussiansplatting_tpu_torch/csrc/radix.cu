@@ -24,6 +24,13 @@
 // depth order, below) its stable order is (tile, depth, id) too.  Tiles
 // must be below num_tiles or SENTINEL, as keygen makes them.
 //
+// Records.  With the depth column (the full key; the tile key where the
+// caller reads the sorted depth) a record is three uint32 columns: depth,
+// tile', payload.  Without it (depth == NULL: the tile key on the uncapped
+// frame, whose ranges read the tile and whose blend reads the index) a
+// record is two: tile', payload.  The scatter takes the column count as a
+// template argument (kCols); ranking, look-back and pipelining are the same.
+//
 // The rows' depth order (vk3d_radix_depth_order).  keygen's rows (K7's
 // [6, N] int32 columns: id, offset, max(w, 1), min_x, min_y, depth bits, and
 // its inclusive scan `cum` of the counts) are put in the stable order of
@@ -55,10 +62,13 @@
 //
 // Count bound.  The sort covers slots [0, n), n = min(count, E) read from
 // device memory (the host never reads the count).  The setup kernel writes
-// SENTINEL into the three outputs of [n, E) (the identity into the
-// permutation), as the reference's RadixSortIndirectSetup bounds its
-// dispatch by the live count, and checks that each input slot there is a
-// SENTINEL triple; if one is not, every later kernel takes n = E.  So the
+// SENTINEL into the outputs of [n, E) (the identity into the permutation),
+// as the reference's RadixSortIndirectSetup bounds its dispatch by the live
+// count, and checks that each input slot there is a SENTINEL in every
+// column the sort carries; if one is not, every later kernel takes n = E.
+// (Without the depth column a slot whose depth alone is not SENTINEL keeps
+// n = count: its tile' sorts last either way, so tile and index come out
+// as the three-column sort's.)  So the
 // result is the stable sort of all E slots on any list, and on keygen's
 // lists (live slots a prefix, SENTINEL triples after) only the live prefix
 // is sorted.  Without a count (the distributed frame's received lists,
@@ -76,19 +86,20 @@
 //      sort's flags).
 //  (b) scatter, a digit: a persistent grid, the SMs times the blocks an SM
 //      that the kernel's occupancy allows (one 512-thread block with two
-//      96 KiB record buffers; at most the pass's partitions).  A block takes
+//      96 KiB record buffers, 64 KiB with two columns; at most the pass's
+//      partitions).  A block takes
 //      partitions (8192 slots) from the pass's atomic ticket, never from
 //      blockIdx, in increasing order, until a ticket passes the live
 //      prefix, and works on them as a software pipeline: while it ranks,
 //      looks back and stores its current partition, the next one's records
 //      stage into its other buffer, and the next one is counted and
 //      published before the current one looks back.  A partition
-//      1. is staged: its three record columns copied to shared memory, all
-//         in flight at once (later passes: one bulk copy a column by thread
+//      1. is staged: its record columns copied to shared memory, all in
+//         flight at once (later passes: one bulk copy a column by thread
 //         0, the digit's column counted on one mbarrier of the buffer and
-//         the other two on a second, so that step 2 waits for a third of
-//         the bytes; the first pass: cp.async of the int64 columns' low
-//         words, the uint32 values, 4 B at a time);
+//         the others on a second, so that step 2 waits for the digit's
+//         column alone; the first pass: cp.async of the int64
+//         columns' low words, the uint32 values, 4 B at a time);
 //      2. is counted: each element's peers in its round (warp w holds slots
 //         [512 w, 512 w + 512), 32 a round; __match_any_sync), the
 //         partition's count of each digit in shared memory, published bin
@@ -128,23 +139,26 @@
 //      current partition: a later partition's look-back seldom waits on it.
 // Records ping-pong between two scratch buffers as three uint32 columns
 // (depth, tile', payload: the id, or the slot when the permutation is
-// asked for; for the rows depth, the packed word, the row id), each padded
-// to a multiple of 4 words.  The first scatter of a sort reads the int64
-// columns (maps the SENTINEL tile to num_tiles, as it counts a tile digit
-// and as it stores, and makes the slot payload); the last writes the int64
-// tile, depth and index (the index gathered by slot when the permutation is
-// asked for) and the int64 permutation, or the rows' six int32 columns.
+// asked for; for the rows depth, the packed word, the row id), or two
+// (tile', payload), each padded to a multiple of 4 words.  The first
+// scatter of a sort reads the int64 columns (maps the SENTINEL tile to
+// num_tiles, as it counts a tile digit and as it stores, and makes the slot
+// payload); the last writes the int64 tile, depth (with three columns) and
+// index (the index gathered by slot when the permutation is asked for) and
+// the int64 permutation, or the rows' six int32 columns.
 // The rows' first scatter reads the prep's records like a middle pass.  The
 // tickets decide only which block takes which partition, never an order:
 // the result is deterministic and stable.
 //
 // What bounds it on the H100: bytes.  The function reads 24 B a live slot
-// and writes 24 B a slot: 0.66 GB at garden (13.1M live of 14.19M), 0.20
-// ms at 3.35 TB/s.  A radix sort must move each record once a pass: the
-// histogram reads 16 B a slot once, and the scatters read and write 12 B a
-// slot (the first reads 24 B, the last writes 24 B), ~184 B a sorted slot
-// over 6 passes, plus the status words (passes x partitions x 1 KB zeroed,
-// then written and read).  What the design does about it: it sorts only the
+// and writes 24 B a slot (16 and 16 with two columns): 0.66 GB at garden
+// (13.1M live of 14.19M), 0.20 ms at 3.35 TB/s.  A radix sort must move
+// each record once a pass: the histogram reads 16 B a slot once (8 B on
+// the tile key), and the scatters read and write 12 B a slot (the first
+// reads 24 B, the last writes 24 B), ~184 B a sorted slot over 6 passes,
+// 72 B over the tile key's 2 and 48 B with two columns (8 B, 16 B, 16 B),
+// plus the status words (passes x partitions x 1 KB zeroed, then written
+// and read).  What the design does about it: it sorts only the
 // used key bits and the live prefix, carries 12-byte records instead of a
 // 64-bit key and a permutation, reads the key columns once for all the
 // digits' histograms, launches one kernel a digit, and keeps each block's
@@ -171,7 +185,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 16;                 // elements a thread
 constexpr int kTile = kThreads * kItems;   // 8192 slots a partition
 constexpr int kWarpSlots = 32 * kItems;    // 512 slots a warp
-constexpr int kStage = 3 * kTile;          // words of a partition's record buffer
 constexpr int kScatterBlocksPerSm = 1;
 constexpr int kLookBack = 8;               // look-back words a bin reads at once
 constexpr int kDigitBits = 8;
@@ -207,11 +220,14 @@ constexpr uint32_t kCountMask = kAggregate - 1u;
 constexpr int64_t kSentinel = 0xFFFFFFFFll;  // core/config.py SENTINEL
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kSentinelWord = 0xFFFFFFFFu;  // a SENTINEL's low word
-// The scatter's dynamic shared memory: two partitions' three record
-// columns (the current one and the next one's stage), the per-warp bin
-// counters (later the inverse map), the partition's bin counts, the local
-// and global bin offsets, the scan sums.
-constexpr int kScatterSmem = (2 * kStage + kWarps * kBins + 3 * kBins + 32) * 4;
+// The scatter's dynamic shared memory with records of `cols` columns: two
+// partitions' records (the current one and the next one's stage), the
+// per-warp bin counters (later the inverse map), the partition's bin
+// counts, the local and global bin offsets, the scan sums.
+constexpr int scatter_smem(int cols) {
+  return (2 * cols * kTile + kWarps * kBins + 3 * kBins + 32) * 4;
+}
+constexpr int kScatterSmem = scatter_smem(3);
 
 static_assert(kThreads >= kBins && kThreads % 32 == 0, "a thread a bin in the per-bin steps");
 static_assert(kTile <= 0x10000 && kTile % 4 == 0, "places pack two to a register; whole vectors");
@@ -348,8 +364,8 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* s
 }
 
 // The tail [min(count, e), e): SENTINEL into the outputs, the identity into
-// the permutation, and the flag set if an input slot there is not a
-// SENTINEL triple.
+// the permutation, and the flag set if an input slot there is not SENTINEL
+// in every column; depth and out_depth are NULL without the depth column.
 __global__ void __launch_bounds__(kHistThreads) radix_setup_kernel(
     const int64_t* __restrict__ tile, const int64_t* __restrict__ depth,
     const int64_t* __restrict__ index, const int64_t* __restrict__ count, uint32_t e,
@@ -360,9 +376,10 @@ __global__ void __launch_bounds__(kHistThreads) radix_setup_kernel(
   bool bad = false;
   for (uint32_t i = n + blockIdx.x * kHistThreads + threadIdx.x; i < e;
        i += gridDim.x * kHistThreads) {
-    bad |= tile[i] != kSentinel || depth[i] != kSentinel || index[i] != kSentinel;
+    bad |= tile[i] != kSentinel || (depth != nullptr && depth[i] != kSentinel) ||
+           index[i] != kSentinel;
     out_tile[i] = kSentinel;
-    out_depth[i] = kSentinel;
+    if (out_depth != nullptr) out_depth[i] = kSentinel;
     out_index[i] = kSentinel;
     if (out_perm != nullptr) out_perm[i] = i;
   }
@@ -427,12 +444,12 @@ __global__ void __launch_bounds__(kHistThreads) radix_histogram_kernel(
 
 struct Pass {
   const int64_t* tile64;   // the int64 input columns (first pass; index64
-  const int64_t* depth64;  // also the last pass's gather by slot)
-  const int64_t* index64;
-  const uint32_t* in;      // [3][stride] depth, tile', payload (later passes)
-  uint32_t* out;           // [3][stride] (all passes but the last)
-  int64_t* out_tile;       // the int64 outputs (last pass)
-  int64_t* out_depth;
+  const int64_t* depth64;  // also the last pass's gather by slot; depth64
+  const int64_t* index64;  // NULL with two columns)
+  const uint32_t* in;      // [kCols][stride] (depth,) tile', payload (later passes)
+  uint32_t* out;           // [kCols][stride] (all passes but the last)
+  int64_t* out_tile;       // the int64 outputs (last pass; out_depth NULL
+  int64_t* out_depth;      // with two columns)
   int64_t* out_index;
   int64_t* out_perm;       // NULL: no permutation; the payload is the id
   int32_t* out_rows;       // the rows' last pass: [6][e] int32, as K1 reads them
@@ -447,7 +464,7 @@ struct Pass {
   uint32_t e;
   uint32_t stride;         // words between the record columns: e rounded up to 4
   uint32_t num_tiles;
-  int column;              // 0: the digit is in depth, 1: in tile'
+  int column;              // the digit's record column: depth 0, tile' kCols - 2
   int shift;
   int pass;
 };
@@ -483,27 +500,29 @@ __device__ __forceinline__ uint32_t kept_count(const int64_t* cum, uint32_t row,
 }
 
 // Starts the staging of the records of the partition at `start`, [0, cnt)
-// of each column, into `buf` ([3][kTile]).  The first pass copies the low
-// words of the int64 columns (their uint32 values) 4 B at a time with
+// of each column, into `buf` ([kCols][kTile]).  The first pass copies the
+// low words of the int64 columns (their uint32 values) 4 B at a time with
 // cp.async, every thread its share, the payload only when it is the id,
 // closed as one cp.async group.  Later passes have thread 0 copy each
 // padded uint32 column with one bulk copy (a segment starts 16 B aligned,
 // and its rounded-up end stays inside the column's padding): the digit's
-// column counted on `bars[0]`, the other two on `bars[1]`, so that the
-// count waits for a third of the bytes.  `wait_digits` and `wait_records`
+// column counted on `bars[0]`, the others on `bars[1]`, so that the count
+// waits for the digit's column alone.  `wait_digits` and `wait_records`
 // wait for them.
-template <bool kFirst>
+template <bool kFirst, int kCols>
 __device__ __forceinline__ void stage_partition(const Pass& p, uint32_t start, uint32_t cnt,
                                                 uint32_t* buf, uint64_t* bars) {
+  constexpr int kTileCol = kCols - 2;
   if (kFirst) {
-    const auto* d32 = reinterpret_cast<const uint32_t*>(p.depth64 + start);
     const auto* t32 = reinterpret_cast<const uint32_t*>(p.tile64 + start);
     const auto* i32 = reinterpret_cast<const uint32_t*>(p.index64 + start);
     const bool payload = p.out_perm == nullptr;
     for (uint32_t i = threadIdx.x; i < cnt; i += kThreads) {
-      cp_async4(buf + i, d32 + 2 * i);
-      cp_async4(buf + kTile + i, t32 + 2 * i);
-      if (payload) cp_async4(buf + 2 * kTile + i, i32 + 2 * i);
+      if constexpr (kCols == 3) {
+        cp_async4(buf + i, reinterpret_cast<const uint32_t*>(p.depth64 + start) + 2 * i);
+      }
+      cp_async4(buf + kTileCol * kTile + i, t32 + 2 * i);
+      if (payload) cp_async4(buf + (kTileCol + 1) * kTile + i, i32 + 2 * i);
     }
     cp_async_commit();
   } else if (threadIdx.x == 0) {
@@ -512,10 +531,10 @@ __device__ __forceinline__ void stage_partition(const Pass& p, uint32_t start, u
     // block's barrier) are ordered before the copy's writes.
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     mbarrier_expect(&bars[0], bytes);
-    mbarrier_expect(&bars[1], 2 * bytes);
+    mbarrier_expect(&bars[1], (kCols - 1) * bytes);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int col = (p.column + c) % 3;  // the digit's column first
+    for (int c = 0; c < kCols; ++c) {
+      const int col = (p.column + c) % kCols;  // the digit's column first
       bulk_copy(buf + col * kTile, p.in + col * static_cast<size_t>(p.stride) + start, bytes,
                 &bars[c == 0 ? 0 : 1]);
     }
@@ -535,7 +554,7 @@ __device__ __forceinline__ void wait_digits(uint64_t* bars, uint32_t b, uint32_t
   }
 }
 
-// Waits for the other two columns of a stage into buffer b (bars[2 b + 1],
+// Waits for the other columns of a stage into buffer b (bars[2 b + 1],
 // bit 2 b + 1); each thread sees them once its own wait returns.
 template <bool kFirst>
 __device__ __forceinline__ void wait_records(uint64_t* bars, uint32_t b, uint32_t& parities) {
@@ -572,10 +591,15 @@ __device__ __forceinline__ void count_partition(const uint32_t* dcol, uint32_t c
 // its tickets (steps 1-5 and the loop at the top of the file).  kFirst: the
 // sort's first pass, staged from the int64 columns; kLast: its last, which
 // stores the int64 columns, or with kRows the rows' six int32 columns.
-template <bool kFirst, bool kLast, bool kRows>
+// kCols: the record's columns, 3 (depth, tile', payload) or 2 (tile',
+// payload).
+template <bool kFirst, bool kLast, bool kRows, int kCols>
 __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_kernel(const Pass p) {
-  static_assert(!kRows || (kLast && !kFirst),
+  static_assert(!kRows || (kLast && !kFirst && kCols == 3),
                 "the rows' records are prepped; kRows is a last pass");
+  static_assert(kCols == 2 || kCols == 3, "a record is (depth,) tile', payload");
+  constexpr int kStage = kCols * kTile;     // words of a partition's record buffer
+  constexpr int kTileCol = kCols - 2;       // tile's record column
   extern __shared__ __align__(16) uint32_t smem[];  // [2][kStage] the record buffers, then:
   __shared__ uint32_t s_ticket;
   __shared__ uint64_t s_bar[4];  // the record buffers' bulk copies: [buffer][digits, the rest]
@@ -595,7 +619,7 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
   uint32_t* wh = whist + warp * kBins;
   auto* inv = reinterpret_cast<uint16_t*>(whist);
   const uint32_t n = sorted_len(p.count, p.flag, p.e);
-  const uint32_t sentinel_to = kFirst && p.column == 1 ? p.num_tiles : 0u;
+  const uint32_t sentinel_to = kFirst && p.column == kTileCol ? p.num_tiles : 0u;
 
   // The first partition: its ticket, its stage, its count (step 2) and its
   // AGGREGATE word (INCLUSIVE for partition 0).
@@ -609,8 +633,8 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
   __syncthreads();
   uint32_t part = s_ticket;
   if (part * kTile >= n) return;  // uniform over the block
-  stage_partition<kFirst>(p, part * kTile, min(n - part * kTile, static_cast<uint32_t>(kTile)),
-                          smem, s_bar);
+  stage_partition<kFirst, kCols>(p, part * kTile,
+                                 min(n - part * kTile, static_cast<uint32_t>(kTile)), smem, s_bar);
   RADIX_PHASE(1, clock64());
   wait_digits<kFirst>(s_bar, 0, parities);
   __syncthreads();
@@ -670,8 +694,8 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
     const bool more = next * kTile < n;  // uniform over the block
     const uint32_t next_cnt = more ? min(n - next * kTile, static_cast<uint32_t>(kTile)) : 0u;
     if (more) {
-      stage_partition<kFirst>(p, next * kTile, next_cnt, smem + (b ^ 1u) * kStage,
-                              s_bar + 2 * (b ^ 1u));
+      stage_partition<kFirst, kCols>(p, next * kTile, next_cnt, smem + (b ^ 1u) * kStage,
+                                     s_bar + 2 * (b ^ 1u));
     }
     RADIX_PHASE(3, clock64());
     if (bin_thread) {
@@ -780,20 +804,22 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
     RADIX_PHASE(7, clock64());
     __syncthreads();
 
-    // 5. Thread t writes sorted places t, t + kThreads, ... of all three
-    // columns, reading each record where step 1 staged it.
+    // 5. Thread t writes sorted places t, t + kThreads, ... of every
+    // column, reading each record where step 1 staged it.
     wait_records<kFirst>(s_bar, b, parities);
 #pragma unroll 4
     for (int j = 0; j < kItems; ++j) {
       const uint32_t i = j * kThreads + tid;
       if (i < cnt) {
         const uint32_t src = inv[i];
-        const uint32_t dk = s_col[src];
-        uint32_t tk = s_col[kTile + src];
+        const uint32_t dk = kCols == 3 ? s_col[src] : 0u;
+        uint32_t tk = s_col[kTileCol * kTile + src];
         if (kFirst && tk == kSentinelWord) tk = p.num_tiles;
-        const uint32_t pk =
-            kFirst && p.out_perm != nullptr ? start + src : s_col[2 * kTile + src];
-        const uint32_t g = gdelta[((p.column == 0 ? dk : tk) >> p.shift) & (kBins - 1)] + i;
+        const uint32_t pk = kFirst && p.out_perm != nullptr
+                                ? start + src
+                                : s_col[(kTileCol + 1) * kTile + src];
+        const uint32_t g =
+            gdelta[((p.column == kTileCol ? tk : dk) >> p.shift) & (kBins - 1)] + i;
         if (kRows) {
           // tk is the packed word, pk the row id.
           const RowFields f = unpack_row(tk, p.bx, p.by);
@@ -809,7 +835,7 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
           auto* out_tile = reinterpret_cast<long long*>(p.out_tile);
           auto* out_depth = reinterpret_cast<long long*>(p.out_depth);
           auto* out_index = reinterpret_cast<long long*>(p.out_index);
-          __stcs(out_depth + g, static_cast<long long>(dk));
+          if (kCols == 3) __stcs(out_depth + g, static_cast<long long>(dk));
           __stcs(out_tile + g, tk == p.num_tiles ? kSentinel : static_cast<long long>(tk));
           if (p.out_perm != nullptr) {
             __stcs(out_index + g, __ldg(reinterpret_cast<const long long*>(p.index64) + pk));
@@ -818,9 +844,9 @@ __global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm) radix_scatter_k
             __stcs(out_index + g, static_cast<long long>(pk));
           }
         } else {
-          __stcs(p.out + g, dk);
-          __stcs(p.out + p.stride + g, tk);
-          __stcs(p.out + 2 * static_cast<size_t>(p.stride) + g, pk);
+          if (kCols == 3) __stcs(p.out + g, dk);
+          __stcs(p.out + kTileCol * static_cast<size_t>(p.stride) + g, tk);
+          __stcs(p.out + (kTileCol + 1) * static_cast<size_t>(p.stride) + g, pk);
         }
       }
     }
@@ -1056,17 +1082,19 @@ cudaError_t rows_grid(int device, uint32_t nparts, uint32_t* blocks) {
 // kernel's opt-in, a host call made once a device per process with the
 // occupancy query (cached for devices below 64, asked every time from 64
 // on); a refused call is returned and asked again next time.  The carveout
-// asks for the most shared memory, so the block's 211 KiB fit an SM.
-template <bool kFirst, bool kLast, bool kRows>
+// asks for the most shared memory, so the block's 211 KiB (147 KiB with two
+// columns) fit an SM.
+template <bool kFirst, bool kLast, bool kRows, int kCols>
 cudaError_t scatter_grid(int device, uint32_t* blocks) {
   static std::atomic<uint32_t> cached[64];
   const bool cacheable = device >= 0 && device < 64;
   if (cacheable && (*blocks = cached[device].load(std::memory_order_acquire)) != 0) {
     return cudaSuccess;
   }
-  const auto kernel = radix_scatter_kernel<kFirst, kLast, kRows>;
+  const auto kernel = radix_scatter_kernel<kFirst, kLast, kRows, kCols>;
+  constexpr int kSmem = scatter_smem(kCols);
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScatterSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -1074,7 +1102,7 @@ cudaError_t scatter_grid(int device, uint32_t* blocks) {
   int per_sm = 0;
   int sms = 0;
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kScatterSmem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmem);
   }
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
@@ -1084,14 +1112,24 @@ cudaError_t scatter_grid(int device, uint32_t* blocks) {
   return cudaSuccess;
 }
 
-template <bool kFirst, bool kLast, bool kRows = false>
+template <bool kFirst, bool kLast, bool kRows, int kCols>
 cudaError_t launch_scatter(const Pass& p, uint32_t nparts, int device, cudaStream_t s) {
   uint32_t blocks = 0;
-  const cudaError_t err = scatter_grid<kFirst, kLast, kRows>(device, &blocks);
+  const cudaError_t err = scatter_grid<kFirst, kLast, kRows, kCols>(device, &blocks);
   if (err != cudaSuccess) return err;
-  radix_scatter_kernel<kFirst, kLast, kRows>
-      <<<blocks < nparts ? blocks : nparts, kThreads, kScatterSmem, s>>>(p);
+  radix_scatter_kernel<kFirst, kLast, kRows, kCols>
+      <<<blocks < nparts ? blocks : nparts, kThreads, scatter_smem(kCols), s>>>(p);
   return cudaGetLastError();
+}
+
+// One digit pass of vk3d_radix_sort on records of kCols columns.
+template <int kCols>
+cudaError_t launch_sort_pass(const Pass& p, bool first, bool last, uint32_t nparts, int device,
+                             cudaStream_t s) {
+  return first ? (last ? launch_scatter<true, true, false, kCols>(p, nparts, device, s)
+                       : launch_scatter<true, false, false, kCols>(p, nparts, device, s))
+               : (last ? launch_scatter<false, true, false, kCols>(p, nparts, device, s)
+                       : launch_scatter<false, false, false, kCols>(p, nparts, device, s));
 }
 
 int bit_length(int64_t x) {
@@ -1133,16 +1171,17 @@ extern "C" int vk3d_radix_phases(void* out) {
 extern "C" int64_t vk3d_radix_resident_blocks(int32_t device) {
   cudaError_t err = cudaSetDevice(device);
   uint32_t blocks = 0;
-  if (err == cudaSuccess) err = scatter_grid<false, false, false>(device, &blocks);
+  if (err == cudaSuccess) err = scatter_grid<false, false, false, 3>(device, &blocks);
   return err == cudaSuccess ? static_cast<int64_t>(blocks) : -static_cast<int64_t>(err);
 }
 
 // Sorts the [e] int64 columns tile, depth, index (uint32 values; tiles below
 // num_tiles or SENTINEL) by `key`, stably: kKeyTileDepth (tile, depth),
 // kKeyTile the tile alone; into out_tile, out_depth, out_index, and the slot
-// permutation into out_perm unless it is NULL.  count: a [] int64 on the
-// device bounding the sorted prefix, or NULL for every slot.  e < 2^30 (the
-// status words' counts).  scratch: radix_kernel.scratch_words(e, num_tiles,
+// permutation into out_perm unless it is NULL.  depth NULL (kKeyTile only):
+// two-column records, tile and index alone, out_depth not written.  count:
+// a [] int64 on the device bounding the sorted prefix, or NULL for every
+// slot.  e < 2^30 (the status words' counts).  scratch: radix_kernel.scratch_words(e, num_tiles,
 // key) uint32 words, 16 B aligned (the header, the [passes][partitions][256]
 // status words, two [3][e rounded up to 4] record buffers).  *launches
 // receives the number of kernels launched.
@@ -1155,10 +1194,11 @@ extern "C" int vk3d_radix_sort(const void* tile, const void* depth, const void* 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (e < 0 || e >= (int64_t{1} << kStatusCountBits) || num_tiles <= 0 ||
       num_tiles >= (int64_t{1} << 31) || reinterpret_cast<uintptr_t>(scratch) % 16 != 0 ||
-      (key != kKeyTileDepth && key != kKeyTile)) {
+      (key != kKeyTileDepth && key != kKeyTile) || (depth == nullptr && key != kKeyTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (e == 0) return static_cast<int>(cudaSuccess);
+  const int cols = depth == nullptr ? 2 : 3;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto ne = static_cast<uint32_t>(e);
   const uint32_t nparts = (ne + kTile - 1) / kTile;
@@ -1181,7 +1221,7 @@ extern "C" int vk3d_radix_sort(const void* tile, const void* depth, const void* 
   p.depth64 = static_cast<const int64_t*>(depth);
   p.index64 = static_cast<const int64_t*>(index);
   p.out_tile = static_cast<int64_t*>(out_tile);
-  p.out_depth = static_cast<int64_t*>(out_depth);
+  p.out_depth = cols == 3 ? static_cast<int64_t*>(out_depth) : nullptr;
   p.out_index = static_cast<int64_t*>(out_index);
   p.out_perm = static_cast<int64_t*>(out_perm);
   p.count = static_cast<const int64_t*>(count);
@@ -1222,13 +1262,11 @@ extern "C" int vk3d_radix_sort(const void* tile, const void* depth, const void* 
     p.hist = hist + q * kBins;
     p.status = status + static_cast<size_t>(q) * nparts * kBins;
     p.ticket = tickets + q;
-    p.column = q < depth_passes ? 0 : 1;
+    p.column = q < depth_passes ? 0 : cols - 2;
     p.shift = kDigitBits * (q < depth_passes ? q : q - depth_passes);
     p.pass = q;
-    err = first ? (last ? launch_scatter<true, true>(p, nparts, device, s)
-                        : launch_scatter<true, false>(p, nparts, device, s))
-                : (last ? launch_scatter<false, true>(p, nparts, device, s)
-                        : launch_scatter<false, false>(p, nparts, device, s));
+    err = cols == 2 ? launch_sort_pass<2>(p, first, last, nparts, device, s)
+                    : launch_sort_pass<3>(p, first, last, nparts, device, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launches;
   }
@@ -1330,8 +1368,8 @@ extern "C" int vk3d_radix_depth_order(const void* cols, const void* cum, int64_t
     p.ticket = header + kTicketWord + pass;
     p.shift = kDigitBits * pass;
     p.pass = pass;
-    err = pass == kDepthPasses - 1 ? launch_scatter<false, true, true>(p, nparts, device, s)
-                                   : launch_scatter<false, false>(p, nparts, device, s);
+    err = pass == kDepthPasses - 1 ? launch_scatter<false, true, true, 3>(p, nparts, device, s)
+                                   : launch_scatter<false, false, false, 3>(p, nparts, device, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launches;
   }

@@ -27,6 +27,8 @@ raises on the CUDA error the entry point returns, and counts the launch in
   compact_slabs, compact_runs           K5
   compact_segments                      K6
   radix_sort                            radix sorts (one entry-point call each)
+  radix_two_column                      those of them that carried no depth
+                                        column (the uncapped radix frame's)
   depth_order                           keygen's rows put in depth order (one
                                         call a frame on the radix path)
   radix_kernels                         the kernels those sorts and depth
@@ -37,8 +39,8 @@ raises on the CUDA error the entry point returns, and counts the launch in
   bitonic_register, bitonic_wide        its global passes
   bitonic_global_stages                 the stages its global passes ran
 
-"radix_kernels" and "bitonic_global_stages" count no launch of their own:
-the sorts' wrappers add them after `launch`.
+"radix_kernels", "radix_two_column" and "bitonic_global_stages" count no
+launch of their own: the sorts' wrappers add them after `launch`.
 """
 
 from __future__ import annotations

@@ -19,10 +19,14 @@ The columns are int64 tensors holding uint32 values (ops/keygen.py), tiles
 below `num_tiles` or SENTINEL; the order is stable, with SENTINEL tiles
 last, by the named key (`schedule`): "tile_depth", (tile, depth), or
 "tile", the tile alone, for a list keygen expanded from rows already in
-depth order.  `count` ([] int64 on the device, read there) bounds
-the sorted prefix: the slots past it are written SENTINEL, unless one of
-them is not a SENTINEL triple, in which case every slot is sorted
-(csrc/radix.cu, "Count bound").  The inputs are not written; the outputs
+depth order.  With the tile key the depth column may be None: the
+records are then (tile', payload), two columns where three are (depth,
+tile', payload), for a caller that reads no sorted depth, and the depth
+comes back None (counted as "radix_two_column").  `count` ([] int64 on
+the device, read there) bounds the sorted prefix: the slots past it are
+written SENTINEL, unless one of them is not SENTINEL in every column
+sorted, in which case every slot is sorted (csrc/radix.cu, "Count
+bound").  The inputs are not written; the outputs
 and the scratch are new tensors.  Lists of 2^30 slots or more are refused:
 a look-back status word holds a count in 30 bits beside its 2-bit flag.
 Only contiguous CUDA tensors are taken: ops/sort.py runs the plain version
@@ -164,22 +168,37 @@ def depth_order_scratch_words(n: int) -> int:
             + 6 * _words4(n))
 
 
-def radix_sort(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor,
+def check_depth_column(depth: torch.Tensor | None, key: str) -> None:
+    """Only the tile key sorts without a depth column."""
+    if depth is None and key != "tile":
+        raise ValueError(f"the {key!r} key sorts by the depth column, and it is None")
+
+
+def _ptr(x: torch.Tensor | None):
+    return None if x is None else x.data_ptr()
+
+
+def radix_sort(tile: torch.Tensor, depth: torch.Tensor | None, index: torch.Tensor,
                count: torch.Tensor | None, num_tiles: int, *, with_perm: bool = False,
                key: str = "tile_depth"):
     """Sort three [E] int64 contiguous CUDA columns by `key` ("tile_depth":
     (tile, depth); "tile": the tile alone), stably, over the prefix `count`
     bounds (None: every slot); returns the sorted (tile, depth, index), new
-    tensors, and with `with_perm` the [E] int64 slot permutation too."""
+    tensors, and with `with_perm` the [E] int64 slot permutation too.
+    `depth` None (the "tile" key only): two-column records, and the
+    returned depth is None."""
     if not 0 < num_tiles < 2**31:
         raise ValueError(f"num_tiles {num_tiles} does not fit the sort key")
     if key not in SORT_KEYS:
         raise ValueError(f"unknown sort key {key!r}")
+    check_depth_column(depth, key)
     e = tile.shape[0]
     if e >= MAX_SLOTS:
         raise ValueError(f"{e} slots do not fit the look-back status words' "
                          f"{STATUS_COUNT_BITS}-bit counts")
     for name, x in (("tile", tile), ("depth", depth), ("index", index)):
+        if x is None:
+            continue
         if x.dim() != 1 or x.dtype != torch.int64 or x.shape[0] != e:
             raise ValueError(f"{name} must be [{e}] int64, got {tuple(x.shape)} {x.dtype}")
         if not x.is_contiguous():
@@ -187,20 +206,20 @@ def radix_sort(tile: torch.Tensor, depth: torch.Tensor, index: torch.Tensor,
     if count is not None and (count.dim() != 0 or count.dtype != torch.int64):
         raise ValueError(f"count must be a [] int64, got {tuple(count.shape)} {count.dtype}")
     dev = _build.card_device(tile, depth, index, count)
-    out = [torch.empty_like(tile) for _ in range(3)]
+    out = [None if x is None else torch.empty_like(x) for x in (tile, depth, index)]
     perm = torch.empty_like(tile) if with_perm else None
     if e:
         check_kernel_config()
         scratch = torch.empty(scratch_words(e, num_tiles, key), dtype=torch.int32, device=dev)
         launched = ctypes.c_int64(0)
         _build.launch(
-            "radix_sort", "vk3d_radix_sort", tile.data_ptr(), depth.data_ptr(), index.data_ptr(),
-            None if count is None else count.data_ptr(), e, num_tiles, SORT_KEYS[key],
-            scratch.data_ptr(),
-            *(x.data_ptr() for x in out), None if perm is None else perm.data_ptr(),
+            "radix_sort", "vk3d_radix_sort", *(_ptr(x) for x in (tile, depth, index, count)),
+            e, num_tiles, SORT_KEYS[key], scratch.data_ptr(), *(_ptr(x) for x in (*out, perm)),
             ctypes.byref(launched), device=dev,
         )
         _build.LAUNCHES["radix_kernels"] += launched.value
+        if depth is None:
+            _build.LAUNCHES["radix_two_column"] += 1
     return (*out, perm) if with_perm else tuple(out)
 
 

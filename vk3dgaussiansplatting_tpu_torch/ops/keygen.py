@@ -59,14 +59,16 @@ class SortElements(NamedTuple):
     """Flat sort-element list of capacity E, sentinel-padded.
 
     tile:  [E] int64 tile key (SENTINEL for unused slots)
-    depth: [E] int64 depth key in [0, 2^32) (SENTINEL for unused slots)
+    depth: [E] int64 depth key in [0, 2^32) (SENTINEL for unused slots);
+           None after the uncapped frame's sort, which carries no depth
+           (ops/sort.py)
     index: [E] int64 source gaussian index (SENTINEL for unused slots)
     count: []  int64 live elements (the reference's
            cullData.numGaussiansToRender.x, clamped to the capacity)
     """
 
     tile: torch.Tensor
-    depth: torch.Tensor
+    depth: torch.Tensor | None
     index: torch.Tensor
     count: torch.Tensor
 

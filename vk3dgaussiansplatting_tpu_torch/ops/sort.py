@@ -30,12 +30,16 @@ order already, each gaussian's tiles row-major; the sort then keys tile'
 alone (key "tile", 2 passes at 720p and 1080p), and its stable order is
 the same (tile, depth, index) order, as a gaussian touches a tile at most
 once.  The bitonic sort and the distributed frame's received lists
-(parallel/dist.py `_sort3`) keep the index order and the full key.
+(parallel/dist.py `_sort3`) keep the index order and the full key.  A
+caller that reads no sorted depth (the uncapped frame: its ranges read the
+tile, its blend the index) hands the tile-key sort a list whose depth is
+None; the sort then carries (tile', index) records, two columns where it
+carries three, and returns the depth None.
 
 `count` bounds the sorted prefix: slots at and past it are written as
-SENTINEL triples, as keygen's lists hold there; where an input slot there is
-not a SENTINEL triple, every slot is sorted, so the result is always the
-stable sort of the whole list.
+SENTINEL, as keygen's lists hold there; where an input slot there is not
+SENTINEL in every column sorted, every slot is sorted, so the result is
+always the stable sort of the whole list.
 
 `SortAlgorithm.BITONIC` selects the reference's other sort, the bitonic
 merge network (ops/bitonic.py, a CUDA kernel on the card), which gives the
@@ -54,12 +58,13 @@ from .keygen import SortElements
 
 def _sorted_len(elements: SortElements) -> int:
     """The sorted prefix: min(count, E), or E without a count or when a slot
-    past the count is not a SENTINEL triple (csrc/radix.cu's setup)."""
+    past the count is not SENTINEL in every column sorted (csrc/radix.cu's
+    setup)."""
     e = elements.tile.shape[0]
     if elements.count is None:
         return e
     n = min(max(int(elements.count), 0), e)
-    tail = [x[n:] for x in elements[:3]]
+    tail = [x[n:] for x in elements[:3] if x is not None]
     return n if all(bool((x == SENTINEL).all()) for x in tail) else e
 
 
@@ -68,16 +73,20 @@ def sort_elements_radix_plain(elements: SortElements, num_tiles: int, *,
     """csrc/radix.cu in torch ops: the key map, the count bound and the
     sentinel fill, then one stable counting pass a digit of
     `radix_kernel.schedule(num_tiles, key)`.  `elements.count` None sorts every
-    slot.  Returns the sorted SortElements and, with `with_perm`, the [E]
-    int64 slot permutation."""
+    slot; `elements.depth` None (the "tile" key only) sorts two columns and
+    returns the depth None.  Returns the sorted SortElements and, with
+    `with_perm`, the [E] int64 slot permutation."""
+    radix_kernel.check_depth_column(elements.depth, key)
     e = elements.tile.shape[0]
     dev = elements.tile.device
     n = _sorted_len(elements)
     t = elements.tile[:n]
     slot = torch.arange(e, device=dev)
-    # The records: depth, tile' and the payload (the slot, or the id).
-    rec = {"depth": elements.depth[:n], "tile": torch.where(t == SENTINEL, num_tiles, t),
+    # The records: (depth,) tile' and the payload (the slot, or the id).
+    rec = {"tile": torch.where(t == SENTINEL, num_tiles, t),
            "pay": slot[:n] if with_perm else elements.index[:n]}
+    if elements.depth is not None:
+        rec["depth"] = elements.depth[:n]
     for column, shift, _bits in radix_kernel.schedule(num_tiles, key):
         dest = radix_kernel.counting_pass((rec[column] >> shift) & (radix_kernel.BINS - 1))
         for k, v in rec.items():
@@ -91,7 +100,7 @@ def sort_elements_radix_plain(elements: SortElements, num_tiles: int, *,
     index = elements.index[rec["pay"]] if with_perm else rec["pay"]
     out = SortElements(
         tile=fill(torch.where(rec["tile"] == num_tiles, SENTINEL, rec["tile"])),
-        depth=fill(rec["depth"]),
+        depth=fill(rec["depth"]) if "depth" in rec else None,
         index=fill(index),
         count=elements.count,
     )
@@ -105,14 +114,15 @@ def sort_elements_xla(elements: SortElements, num_tiles: int, *, with_perm: bool
     """Order the elements by `key` (`radix_kernel.schedule`: "tile_depth",
     (tile, depth); "tile", the tile alone), stably: the radix kernel on CUDA
     tensors, its plain version on CPU tensors.  `elements.count` bounds the
-    sorted prefix (None: every slot).  With `with_perm`, also the [E] int64
-    slot permutation."""
+    sorted prefix (None: every slot); `elements.depth` None (the "tile" key
+    only) sorts (tile, index) alone and returns the depth None.  With
+    `with_perm`, also the [E] int64 slot permutation."""
     if not 0 < num_tiles < 2**31:
         raise ValueError(f"num_tiles {num_tiles} does not fit the sort key")
     if not _build.on_card(*elements):
         return sort_elements_radix_plain(elements, num_tiles, with_perm=with_perm, key=key)
-    out = radix_kernel.radix_sort(*(x.contiguous() for x in elements[:3]), elements.count,
-                                  num_tiles, with_perm=with_perm, key=key)
+    out = radix_kernel.radix_sort(*(None if x is None else x.contiguous() for x in elements[:3]),
+                                  elements.count, num_tiles, with_perm=with_perm, key=key)
     sorted_el = SortElements(*out[:3], count=elements.count)
     return (sorted_el, out[3]) if with_perm else sorted_el
 
@@ -131,8 +141,9 @@ def sort_elements(elements: SortElements, config: RenderConfig, timer=None, *,
                   depth_ordered: bool = False) -> SortElements:
     """Dispatch on the configured sort algorithm.  `depth_ordered`: the
     list is keygen's expansion of its rows in depth order
-    (`depth_first`), so the radix sort keys the tile alone.  `timer`
-    reaches the bitonic tier's passes; the radix sort takes none."""
+    (`depth_first`), so the radix sort keys the tile alone, and may be
+    handed no depth column.  `timer` reaches the bitonic tier's passes;
+    the radix sort takes none."""
     algo = config.sort_algorithm
     if algo in (SortAlgorithm.AUTO, SortAlgorithm.XLA_SORT):
         return sort_elements_xla(elements, config.num_tiles,

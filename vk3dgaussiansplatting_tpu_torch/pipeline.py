@@ -54,10 +54,13 @@ class FrameOutputs(NamedTuple):
     ok: torch.Tensor | None = None
 
 
-def _sorted_frame(table, view, proj, cam_pos, config, capacity, timer, depth_thr=None):
+def _sorted_frame(table, view, proj, cam_pos, config, capacity, timer, depth_thr=None, *,
+                  reads_depth=True):
     """keygen -> sort -> ranges: (sorted elements, ranges, frame data).  On
     the radix path (`sort_ops.depth_first`) keygen expands its rows in
-    depth order and the sort keys the tile alone."""
+    depth order and the sort keys the tile alone; there, for a caller that
+    reads no sorted depth (`reads_depth` False), the sort carries the tile
+    and the index alone and the elements' depth is None."""
     depth_first = sort_ops.depth_first(config)
     with section(timer, "keygen"):
         elements, frame = keygen_ops.generate_sort_elements(
@@ -65,6 +68,8 @@ def _sorted_frame(table, view, proj, cam_pos, config, capacity, timer, depth_thr
             timer=timer,
         )
     with section(timer, "sort"):
+        if depth_first and not reads_depth:
+            elements = elements._replace(depth=None)
         elements = sort_ops.sort_elements(elements, config, timer, depth_ordered=depth_first)
     with section(timer, "ranges"):
         ranges = ranges_ops.find_ranges(elements, config.num_tiles)
@@ -86,8 +91,11 @@ def render_frame(
     on CPU tensors.  `timer` (utils.timing.CudaPassTimer) records
     the passes keygen, expand (inside keygen), sort, ranges, blend and
     quantize."""
+    # K2 reads the sorted index and the ranges the tile; the capped blend
+    # reads the sorted depth too.
     elements, ranges, frame = _sorted_frame(
-        table, view, proj, cam_pos, config, capacity, timer
+        table, view, proj, cam_pos, config, capacity, timer,
+        reads_depth=config.blend_depth_cap > 0,
     )
     with section(timer, "blend"):
         if config.blend_depth_cap > 0:
