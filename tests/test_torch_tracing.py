@@ -74,8 +74,8 @@ def test_spans_of_a_draw_nest_under_its_frame(monkeypatch):
     assert sorted(frames) == [0, 1]
     for spans in frames.values():
         parents = {s.name: s.parent for s in spans}
-        assert parents == {"frame": None, "depth_order": "keygen", "expand": "keygen",
-                           **{name: "frame" for name in FRAME_PASSES}}
+        assert parents == {"frame": None, "project": "keygen", "depth_order": "keygen",
+                           "expand": "keygen", **{name: "frame" for name in FRAME_PASSES}}
         root = next(s for s in spans if s.name == "frame")
         assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in spans)
         # Spans close children first, the frame last.
@@ -110,9 +110,7 @@ def test_self_time_is_duration_less_children():
     assert spans["policy"].child_ns == dur["sync"] + dur["inner"]
     assert spans["frame"].child_ns == dur["policy"] + dur["patch"]
     assert spans["sync"].parent == "policy" and spans["sync"].child_ns == 0
-    totals = timer.host_totals()
     for name, s in spans.items():
-        assert totals[name] == ((s.end_ns - s.start_ns) / 1e6, s.self_ns / 1e6)
         assert s.self_ns == dur[name] - s.child_ns >= 0
     # The self times add up to the root's duration.
     assert sum(s.self_ns for s in spans.values()) == dur["frame"]

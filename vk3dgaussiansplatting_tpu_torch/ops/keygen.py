@@ -131,15 +131,17 @@ def generate_sort_elements(
         timed as "depth_order"): the same elements and count, in (depth,
         id) order, for a sort on the tile alone; else in index order, as
         the JAX package's list.
-      timer: optional utils.timing.CudaPassTimer; times the expansion and
-        decode as "expand".
+      timer: optional utils.timing.CudaPassTimer; spans K7 as "project"
+        (host-only: its device time is read by launch from the device
+        trace) and times the expansion and decode as "expand".
 
     Returns (SortElements, GaussianFrameData).
     """
     if config.expansion_method not in EXPANSION_METHODS:
         raise ValueError(f"unknown expansion_method {config.expansion_method!r}")
     thr = None if depth_thr is None else prefilter.dilate_thresholds(depth_thr, config)
-    p = keygen_kernel.project_gaussians(table, view, proj, cam_pos, config, capacity, thr)
+    with section(timer, "project"):
+        p = keygen_kernel.project_gaussians(table, view, proj, cam_pos, config, capacity, thr)
     cols, cum = p.cols, p.cum
     if depth_order:
         with section(timer, "depth_order"):

@@ -89,8 +89,8 @@ def render_frame(
     """The full frame: the K2 blend, or with `blend_depth_cap > 0` the
     static-cap capped blend.  The kernels' wrappers run the plain versions
     on CPU tensors.  `timer` (utils.timing.CudaPassTimer) records
-    the passes keygen, expand (inside keygen), sort, ranges, blend and
-    quantize."""
+    the passes keygen (project, depth_order and expand inside it), sort,
+    ranges, blend and quantize."""
     # K2 reads the sorted index and the ranges the tile; the capped blend
     # reads the sorted depth too.
     elements, ranges, frame = _sorted_frame(
