@@ -62,10 +62,15 @@ Phases, one line each (any failure raises, and the exit code is non-zero):
            column of the frame data within 1 ulp on at most 1e-6 of its
            values, every differing gaussian checked to be an _fma tie of the
            plain version (`fma_ties`); the offset row, the scan `cum` and
-           the total bit for bit; its counts mode (total, extents, flags)
-           bit for bit; its time, plain time and bound (316 B a
-           gaussian), K7's counts
-           mode and the wrapper's host µs a call.  The radix sort on the
+           the total bit for bit; the SH rows it read (`sh_rows_read`: the
+           gaussians whose count is above 0, as the plain version's) and
+           an rgb of 0 everywhere else; its counts mode (total, extents,
+           flags) bit for bit; its time, plain time and bound (124 B a
+           gaussian, 192 B more a gaussian that emits), K7's counts
+           mode and the wrapper's host µs a call; at garden, K7 alone at
+           its first pose and at a pose that sees every gaussian
+           (`k7_poses`, the rows read and their share; `ab_k7` runs it on
+           two trees).  The radix sort on the
            frame's own keygen output (tile and index, no depth) five times
            (equal results) and against its plain version and the stable
            torch.sort it replaced, bit for bit, its input unchanged; its
@@ -292,17 +297,20 @@ FLOPS_PER_COLOUR = 7
 FRAME_ROW_BYTES = 36
 TABLE_ROW_BYTES = 40
 # K7 keygen_project, a gaussian: the table row it reads (position 12, scale
-# 12, rot 16, opacity 4, the SH row 192), and what it writes (the six int32
-# column rows 24, the inclusive scan 8, the frame data 48); in the counts
-# mode it reads position, scale and rot, and writes only the total.  Its float32
-# operations (a multiply-add counts 2), as csrc/keygen.cu writes them: view
-# transform 18, NDC 14, depth 3, rotation 54, R S 9, W R S 45, the Jacobian
-# 13, J A 18, covariance 17, screen 6, extents 21, direction 12, SH basis
-# 30, SH dot 96, colour 6, inverse 4.
-KEYGEN_READ_BYTES = 236
+# 12, rot 16, opacity 4; the SH row's 192 only where its count is above 0),
+# and what it writes (the six int32 column rows 24, the inclusive scan 8,
+# the frame data 48); in the counts mode it reads position, scale and rot,
+# and writes only the total.  Its float32 operations (a multiply-add counts
+# 2), as csrc/keygen.cu writes them: view transform 18, NDC 14, depth 3,
+# rotation 54, R S 9, W R S 45, the Jacobian 13, J A 18, covariance 17,
+# screen 6, extents 21, inverse 4; where the count is above 0, direction
+# 12, SH basis 30, SH dot 96, colour 6.
+KEYGEN_READ_BYTES = 44
+KEYGEN_SH_BYTES = 192
 KEYGEN_WRITE_BYTES = 80
 KEYGEN_COUNT_BYTES = 40
-KEYGEN_FLOPS = 366
+KEYGEN_FLOPS = 222
+KEYGEN_SH_FLOPS = 144
 # K7's floats against its plain version: at most 1 ulp apart, on at most
 # this share of a column's values, each at an _fma tie of the plain version.
 KEYGEN_MAX_ULP = 1
@@ -409,10 +417,15 @@ def make_scene(name: str):
     n, width, height, target, frames = SCENES[name]
     config = RenderConfig(width=width, height=height, capacity_pow_two=False)
     table = synthetic.procedural_cloud_table(n, seed=SEED, opacity_mode="capture")
+    return table, config, first_pose(config), target, frames
+
+
+def first_pose(config: RenderConfig) -> Camera:
+    """The scenes' camera before its first frame."""
     cam = Camera(config.aspect)
     cam.set_position((0.0, 0.0, 2.0))
     cam.set_rotation(math.pi, 0.0)
-    return table, config, cam, target, frames
+    return cam
 
 
 def scaled(table: GaussianTable, mult: float) -> GaussianTable:
@@ -1518,9 +1531,15 @@ def check_projection(call, what: str) -> dict:
     if any(bad_c.values()) or set(bad_c) != {"total", "extents", "flags"}:
         raise RuntimeError(f"{what}: keygen_project's counts mode differs from its plain "
                            f"version: {bad_c}")
+    rows = keygen_kernel.sh_rows_read(got)
+    if rows != keygen_kernel.sh_rows_read(want) or bool(
+            (got.color_alpha[~keygen_kernel.emitting(got), :3] != 0).any()):
+        raise RuntimeError(f"{what}: keygen_project's SH gate: {rows} rows read, the plain "
+                           f"version's {keygen_kernel.sh_rows_read(want)}, or an rgb not 0 "
+                           f"where the count is 0")
     return {"mismatch": {k: bad[k] for k in keygen_kernel.FLOAT_FIELDS},
             "tie_gaussians": idx.tolist()[:20], "max_abs_err": max_abs,
-            "live": int(got.total)}
+            "live": int(got.total), "sh_rows_read": rows, "sh_rows_share": rows / n}
 
 
 def check_keygen(args, name: str, sh_modes=()) -> dict:
@@ -1554,11 +1573,13 @@ def check_keygen(args, name: str, sh_modes=()) -> dict:
         "device_ms": device_breakdown(lambda: keygen_kernel.project_gaussians(*call)),
         # The thresholds are read once too, where the prefilter is on.
         **bound((KEYGEN_READ_BYTES + KEYGEN_WRITE_BYTES) * n
-                + (8 * thr.numel() if thr is not None else 0), KEYGEN_FLOPS * n),
+                + KEYGEN_SH_BYTES * k7["sh_rows_read"] + (8 * thr.numel() if thr is not None else 0),
+                KEYGEN_FLOPS * n + KEYGEN_SH_FLOPS * k7["sh_rows_read"]),
     })
 
     log(f"check {name} keygen: keygen_project == plain on {n} gaussians ({k7['live']} live, "
-        f"prefilter {'on' if thr is not None else 'off'}): packed rows, extents, "
+        f"prefilter {'on' if thr is not None else 'off'}; SH rows read {k7['sh_rows_read']}, "
+        f"{k7['sh_rows_share']:.4f} of N, rgb 0 elsewhere): packed rows, extents, "
         f"visible/keep bit for bit; floats (values differing, max ulp) {k7['mismatch']}, "
         f"max |Δ| {k7['max_abs_err']:.3e}, _fma-tie gaussians {k7['tie_gaussians']}"
         + "".join(f"; {m} {v}" for m, v in modes.items())
@@ -1571,6 +1592,40 @@ def check_keygen(args, name: str, sh_modes=()) -> dict:
         f"{k7['device_ms']}, bound {k7['bound_ms']:.4f} ms ({k7['bound_by']}, "
         f"{k7['bound_bytes']} B)")
     return {"keygen_project": k7}
+
+
+def k7_alone_ms(call, iters: int = 20) -> float:
+    """K7's kernel alone (`keygen_project_kernel`, from the profiler), device
+    ms a call, on one call's inputs."""
+    for key, ms, n in _profile(lambda: keygen_kernel.project_gaussians(*call), iters):
+        if "keygen_project_kernel" in key:
+            return _per_call(ms, n, iters)[0]
+    raise RuntimeError("the profiler saw no keygen_project_kernel")
+
+
+def k7_poses(table: GaussianTable, config: RenderConfig, cam: Camera) -> dict:
+    """K7 at two poses of one table: `cam`'s and one from far enough back
+    on its axis that every gaussian is on the image (nothing culled, so the
+    SH gate saves no byte).  At each: the SH rows K7 reads (the gaussians
+    whose count is above 0, from its scan) and their share of N, the
+    gaussians in view (the cull's flag), K7 alone and the wrapper.  It
+    calls nothing the wrapper lacked before the SH gate, so that `ab_k7`
+    can run it on a tree without the gate."""
+    far = Camera(config.aspect)
+    far.set_position(cam.position - cam.forward_dir * np.float32(12.0))
+    far.set_rotation(cam.yaw, cam.pitch)
+    n = table.num_gaussians
+    out = {}
+    for pose, c in (("first", cam), ("in_view", far)):
+        view, proj = c.matrices()
+        call = (table, view, proj, c.position, config, config.sort_capacity(n), None)
+        p = keygen_kernel.project_gaussians(*call, with_aux=True)
+        rows = int((counts_of(p.cum) > 0).sum())
+        out[pose] = {"sh_rows_read": rows, "sh_rows_share": rows / n, "live": int(p.total),
+                     "visible": int((p.flags & 1).sum()),
+                     "k7_alone_ms": k7_alone_ms(call),
+                     "ms": cuda_ms(lambda: keygen_kernel.project_gaussians(*call), 20)}
+    return out
 
 
 def check_keygen_ptxas() -> list[str]:
@@ -1610,6 +1665,38 @@ def ab_frames(trees=("tmp/parent", ".", ".", "tmp/parent")) -> None:
     for tree in trees:
         log(f"=== tree {tree}")
         subprocess.run([sys.executable, "-c", AB_TREE], cwd=tree, check=True, timeout=900)
+
+
+# One tree's part of the K7 A/B: chip_smoke.py of the tree that holds
+# `ab_k7`, loaded by path, over the package of the tree it runs in.
+AB_K7_TREE = ("import importlib.util, json\n"
+              "spec = importlib.util.spec_from_file_location('smoke', {path!r})\n"
+              "c = importlib.util.module_from_spec(spec)\n"
+              "spec.loader.exec_module(c)\n"
+              "c.phase_device()\n"
+              "c.phase_build()\n"
+              "table, config, cam, target, _ = c.make_scene('garden30k_1080p')\n"
+              "table = table.to('cuda')\n"
+              "mult, _ = c.calibrate(table, cam, config, target)\n"
+              "table = c.scaled(table, mult)\n"
+              "print(json.dumps({{'tree': {tree!r}, 'k7': c.k7_poses(table, config, cam)}}),"
+              " flush=True)\n")
+
+
+def ab_k7(trees=("tmp/parent", ".", ".", "tmp/parent")) -> None:
+    """K7 alone at garden's first pose and at a pose that sees every
+    gaussian (`k7_poses`), in the trees given (parent, change, change,
+    parent): one process a tree started from it, each building its own
+    kernels and printing one JSON line.  Run by hand, not by main():
+
+        mkdir -p tmp/parent && git archive HEAD | tar -x -C tmp/parent
+        python3 -c 'import chip_smoke; chip_smoke.ab_k7()'
+    """
+    path = os.path.abspath(__file__)
+    for tree in trees:
+        log(f"=== tree {tree}")
+        subprocess.run([sys.executable, "-c", AB_K7_TREE.format(path=path, tree=tree)],
+                       cwd=tree, check=True, timeout=900)
 
 
 def timed_draws(renderer: Renderer, cam: Camera, base, frames: int, cap=None):
@@ -2514,6 +2601,11 @@ def main() -> None:
         results[name].update(check_keygen(
             args, name, [m for m in SphericalHarmonicsMode if m != renderer.config.sh_mode]
             if i == 0 else ()))
+        if name == "garden30k_1080p":  # the SH gate at its first pose and with nothing culled
+            poses = k7_poses(renderer.table, renderer.config, first_pose(renderer.config))
+            results[name]["keygen_project"]["poses"] = poses
+            log(f"check {name} keygen: K7 at two poses (SH rows read, share of N, K7 alone ms, "
+                f"wrapper ms): {poses}")
         results[name]["radix_sort"] = check_radix(args["radix_sort"], name)
         results[name]["radix_three_column"] = check_radix_three_column(
             args, name, results[name]["radix_sort"])
@@ -2588,7 +2680,8 @@ def main() -> None:
                                           if k in r)
         if k == "keygen_project":  # its counts mode (count_live_elements), its host time
             entry.update(count_launches=launches["keygen_count"], count_ms=res["count_ms"],
-                         host_us=res["host_us"])
+                         host_us=res["host_us"], sh_rows_read=res["sh_rows_read"],
+                         poses=res.get("poses"))
         if k == "radix_sort":
             entry.update(kernels_per_sort=res["kernels_per_sort"], device_ms=res["device_ms"],
                          copy_ms=res["copy_ms"], scatter_pass_ms=res["scatter_pass_ms"])

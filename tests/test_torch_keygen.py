@@ -1,7 +1,9 @@
 """Port parity: keygen (ops/keygen.py) against the JAX package's jitted
 `generate_sort_elements`, with the expansion as `jnp.repeat` and as the
 Pallas kernel (interpret mode).  Tile, depth, index and count must be
-bit-exact; the frame data is compared with allclose (rtol 1e-5, atol 1e-6).
+bit-exact; the frame data is compared with allclose (rtol 1e-5, atol 1e-6),
+but for the rgb of gaussians that emit no element, which the port leaves
+exactly 0 (no reader looks it up) where JAX evaluates a colour.
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ from vk3dgaussiansplatting_tpu.render.camera import Camera
 from vk3dgaussiansplatting_tpu.scenes import synthetic as jsyn
 from vk3dgaussiansplatting_tpu_torch import convert
 from vk3dgaussiansplatting_tpu_torch.ops import keygen as tkg
+from vk3dgaussiansplatting_tpu_torch.ops.cuda import keygen_kernel as kk
 from vk3dgaussiansplatting_tpu_torch.ops.cuda._build import LAUNCHES
 
 torch.set_num_threads(1)
@@ -66,20 +69,23 @@ def _compare(table, cam, config, method, capacity=None):
     jt = jax.tree.map(jnp.asarray, table)
     je, jf = _jax_keygen(jt, jnp.asarray(view), jnp.asarray(proj),
                          jnp.asarray(cam.position), config=config, capacity=capacity)
-    te, tf = tkg.generate_sort_elements(
-        convert.table_from_jax(table), view, proj, cam.position,
-        convert.config_from_jax(config), capacity,
-    )
+    tt, tcfg = convert.table_from_jax(table), convert.config_from_jax(config)
+    te, tf = tkg.generate_sort_elements(tt, view, proj, cam.position, tcfg, capacity)
     for name in ("tile", "depth", "index"):
         np.testing.assert_array_equal(
             getattr(te, name).numpy(), np.asarray(getattr(je, name)).astype(np.int64), name
         )
     assert int(te.count) == int(je.count)
+    # The port evaluates no colour for a gaussian that emits no element (no
+    # reader looks it up): its rgb is exactly 0 where JAX's is a colour.
+    emits = kk.emitting(kk.project_gaussians_plain(tt, view, proj, cam.position, tcfg,
+                                                   capacity)).numpy()
     for name in jf._fields:
-        np.testing.assert_allclose(
-            getattr(tf, name).numpy(), np.asarray(getattr(jf, name)), rtol=1e-5, atol=1e-6,
-            err_msg=name,
-        )
+        got, want = getattr(tf, name).numpy(), np.asarray(getattr(jf, name))
+        if name == "color_alpha":
+            assert (got[~emits, :3] == 0).all(), "rgb of a gaussian that emits nothing"
+            got, want = (np.concatenate([a[emits].ravel(), a[~emits, 3]]) for a in (got, want))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, err_msg=name)
     return te
 
 

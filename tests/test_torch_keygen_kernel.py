@@ -7,7 +7,8 @@ On the CPU the wrappers run their plain versions (`project_gaussians_plain`,
 the port's `generate_sort_elements` and `count_live_elements`, to the JAX
 package's jitted functions: tile, depth, index, count and the live counts
 bit for bit, the frame data within test_torch_keygen.py's tolerance (rtol
-1e-5, atol 1e-6, NaN equal to NaN), with and without the prefilter's
+1e-5, atol 1e-6, NaN equal to NaN; the rgb of a gaussian that emits no
+element exactly 0, where JAX evaluates a colour), with and without the prefilter's
 thresholds and in the three SH modes, then on the edge cases (behind the
 near plane, det == 0, a zero-length view direction, +-inf positions, radii
 far off the grid, N = 1, and N = 0 against the empty list). The launchers
@@ -148,9 +149,18 @@ def _compare_with_jax(table, config, cam, thr=None):
         np.testing.assert_array_equal(getattr(te, name).numpy(),
                                       np.asarray(getattr(je, name)).astype(np.int64), name)
     assert int(te.count) == int(je.count)
+    # The port evaluates no colour for a gaussian that emits no element (no
+    # reader looks it up): its rgb is exactly 0 where JAX's is a colour.
+    dil = None if tthr is None else prefilter.dilate_thresholds(tthr, tcfg)
+    emits = kk.emitting(kk.project_gaussians_plain(tt, view, proj, cam.position, tcfg, capacity,
+                                                   dil)).numpy()
     for name in jf._fields:
-        np.testing.assert_allclose(getattr(tf, name).numpy(), np.asarray(getattr(jf, name)),
-                                   rtol=1e-5, atol=1e-6, equal_nan=True, err_msg=name)
+        got, want = getattr(tf, name).numpy(), np.asarray(getattr(jf, name))
+        if name == "color_alpha":
+            assert (got[~emits, :3] == 0).all(), "rgb of a gaussian that emits nothing"
+            got, want = (np.concatenate([a[emits].ravel(), a[~emits, 3]]) for a in (got, want))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, equal_nan=True,
+                                   err_msg=name)
     want = int(_jax_count(jt, jnp.asarray(view), jnp.asarray(proj), jnp.asarray(cam.position),
                           config=config, depth_thr=jthr))
     assert int(tkg.count_live_elements(tt, view, proj, cam.position, tcfg, tthr)) == want

@@ -21,8 +21,11 @@
 // position, the six int32 rows of the [6, N] packed columns that K1 expands
 // (id, the exclusive offset clamped to the capacity, max(w, 1), min_x,
 // min_y, the depth key's bits), the inclusive int64 scan `cum` [N] that
-// K1's partition search reads and the [] int64 total; every gaussian gets
-// its outputs, culled ones too.  The counts mode (count_live_elements) is a
+// K1's partition search reads and the [] int64 total.  Every gaussian gets
+// its outputs, culled ones too, but for the colour: a gaussian whose count
+// is 0 has no sort element, so no reader looks its colour up, and K7
+// neither reads its SH row nor evaluates it: its rgb is 0 (its alpha is
+// kept).  The counts mode (count_live_elements) is a
 // kernel of its own, keygen_count_kernel: the same geometry, the total (and
 // the optional extents and flags) only.
 //
@@ -50,8 +53,12 @@
 //
 // Staging.  A block's rows are contiguous ranges of the table: position
 // and scale (12 B a row), rot (16 B) and the SH rows (192 B) are copied
-// into shared memory with 16-byte cp.async, the geometry's group first and
-// the SH rows in a second group that lands while the geometry runs.  Chunk
+// into shared memory with 16-byte cp.async, the geometry's group first.
+// The block waits for it and computes each row's count; then each warp
+// copies the SH rows of its rows whose count is above 0 (a ballot of the
+// counts), and they land while the block scans, publishes its sum, writes
+// its rows and stages its frame data.  A row is 192 B, six whole 32-byte
+// sectors, so a row not copied is a row not read.  Chunk
 // c of SH row r is stored at chunk 12 r + (c ^ ((r >> 1) & 3)), whose
 // four banks start at quad 4 ((r & 1) ^ ((c >> 2) & 1)) + ((c & 3) ^
 // ((r >> 1) & 3)) of the eight: a quarter warp (rows 8j .. 8j + 7) reading
@@ -79,12 +86,14 @@
 // version's _fma rounds twice (float64, then float32): on a float32 tie,
 // about 2^-29 of fmas, it is one ulp off, and __fmaf_rn is XLA's answer.
 //
-// What bounds K7 on the H100: bytes.  It reads 236 B a gaussian (position
-// 12, scale 12, rot 16, opacity 4, the SH row 192) and writes 80 (frame
-// data 48, six column rows 24, the scan 8): 1.84 GB at garden's 5.83M
-// gaussians, 0.55 ms at 3.35 TB/s; its ~370 flops a gaussian are 0.03 ms
-// at 67 TFLOP/s.  The status words add 8 B a block.  The counts mode reads
-// 40 B a gaussian (position, scale, rot) and writes the total.
+// What bounds K7 on the H100: bytes.  It reads 44 B a gaussian (position
+// 12, scale 12, rot 16, opacity 4), plus the SH row's 192 B for each
+// gaussian whose count is above 0, and writes 80 (frame data 48, six column
+// rows 24, the scan 8): at garden's 5.83M gaussians, 3.73M of them
+// emitting, 1.44 GB, 0.43 ms at 3.35 TB/s (1.84 GB if every row emitted);
+// its ~370 flops a gaussian are 0.03 ms at 67 TFLOP/s.  The status words
+// add 8 B a block.  The counts mode reads 40 B a gaussian (position,
+// scale, rot) and writes the total.
 //
 // Shape, as measured on the H100 (PERF.md, K7's design): 64-thread
 // blocks of 16.5 KB, 80 registers, twelve blocks an SM, ran faster than
@@ -96,7 +105,14 @@
 // compute), reading more words a lane, a back-off in the wait, and
 // persistent blocks that stage their next partition while looking back all
 // ran slower: each makes a partition's AGGREGATE or INCLUSIVE word come
-// later than its successors need it.
+// later than its successors need it.  The SH gate (PERF.md, K7's row): each
+// warp copying its emitting rows' SH right after its ballot ran 0.60 ms
+// at garden's first pose, where 64% of the gaussians emit, and 0.69 with
+// every gaussian in view, against 0.71 for both with every row copied at
+// the start.  The block copying them after the scan's barrier (0.64 and
+// 0.76 ms), the warps copying the rows that pass the near/NDC test before
+// the rest of the geometry (0.61 and 0.70), or looking back while the rows
+// land (0.70-0.72 and 0.78-0.84) ran slower.
 
 #include <atomic>
 #include <cmath>
@@ -497,18 +513,12 @@ keygen_project_kernel(const Buffers b, const KeygenParams p) {
   const int64_t base = part * kProjectThreads;
   const int rows = static_cast<int>(b.n - base < kProjectThreads ? b.n - base : kProjectThreads);
 
-  // Stage the block's rows: the geometry's group, then the SH rows.
+  // Stage the block's geometry rows and wait for them.
   stage(smem + kPosOff, b.position + 3 * base, 3 * rows);
   stage(smem + kScaleOff, b.scale + 3 * base, 3 * rows);
   stage(smem + kRotOff, b.rot + 4 * base, 4 * rows);
   cp_async_commit();
-  const float* sh = b.sh + kShFloats * base;
-  for (int k = tid; k < rows * kShChunks; k += kProjectThreads) {
-    const int r = k / kShChunks;
-    cp_async16(smem + kShOff + 4 * sh_chunk(r, k - r * kShChunks), sh + 4 * k);
-  }
-  cp_async_commit();
-  cp_async_wait<1>();
+  cp_async_wait<0>();
   __syncthreads();
 
   const int64_t i = base + tid;
@@ -519,21 +529,26 @@ keygen_project_kernel(const Buffers b, const KeygenParams p) {
     g = geometry(s_pos[3 * tid], s_pos[3 * tid + 1], s_pos[3 * tid + 2], s_scale[3 * tid],
                  s_scale[3 * tid + 1], s_scale[3 * tid + 2],
                  reinterpret_cast<const float4*>(smem + kRotOff)[tid], p, b.thr);
-    const int32_t wt = g.max_x - g.min_x;
-    const int32_t ht = g.max_y - g.min_y;
-    count = g.visible && g.keep ? static_cast<long long>(wt) * ht : 0;
-    if (b.extents != nullptr) {
-      reinterpret_cast<int4*>(b.extents)[i] = make_int4(g.min_x, g.min_y, g.max_x, g.max_y);
+    count = g.visible && g.keep
+                ? static_cast<long long>(g.max_x - g.min_x) * (g.max_y - g.min_y)
+                : 0;
+  }
+
+  // The SH rows of the warp's gaussians that emit, and of no other: its
+  // lanes copy them (a ballot of the counts) and they land while the block
+  // scans, publishes its sum, writes its rows and stages its frame data.
+  const unsigned emits = __ballot_sync(0xFFFFFFFFu, count > 0);
+  if (emits != 0) {
+    const int row0 = 32 * warp;
+    const float* sh = b.sh + kShFloats * (base + row0);
+    const int chunks = (rows - row0 < 32 ? rows - row0 : 32) * kShChunks;
+    for (int k = lane; k < chunks; k += 32) {
+      const int r = k / kShChunks;
+      if ((emits >> r) & 1) {
+        cp_async16(smem + kShOff + 4 * sh_chunk(row0 + r, k - r * kShChunks), sh + 4 * k);
+      }
     }
-    if (b.flags != nullptr) {
-      b.flags[i] = static_cast<uint8_t>((g.visible ? 1 : 0) | (g.keep ? 2 : 0));
-    }
-    const int64_t n = b.n;
-    b.cols[i] = static_cast<int32_t>(i);
-    b.cols[2 * n + i] = wt > 1 ? wt : 1;
-    b.cols[3 * n + i] = g.min_x;
-    b.cols[4 * n + i] = g.min_y;
-    b.cols[5 * n + i] = static_cast<int32_t>(g.depth);
+    cp_async_commit();
   }
 
   // The partition's scan of its counts: each warp's inclusive scan, then
@@ -559,6 +574,22 @@ keygen_project_kernel(const Buffers b, const KeygenParams p) {
     store_status(status + part, flag | static_cast<unsigned long long>(aggregate));
   }
 
+  if (live) {
+    const int32_t wt = g.max_x - g.min_x;
+    if (b.extents != nullptr) {
+      reinterpret_cast<int4*>(b.extents)[i] = make_int4(g.min_x, g.min_y, g.max_x, g.max_y);
+    }
+    if (b.flags != nullptr) {
+      b.flags[i] = static_cast<uint8_t>((g.visible ? 1 : 0) | (g.keep ? 2 : 0));
+    }
+    const int64_t n = b.n;
+    b.cols[i] = static_cast<int32_t>(i);
+    b.cols[2 * n + i] = wt > 1 ? wt : 1;
+    b.cols[3 * n + i] = g.min_x;
+    b.cols[4 * n + i] = g.min_y;
+    b.cols[5 * n + i] = static_cast<int32_t>(g.depth);
+  }
+
   // The frame data while the predecessors publish.  The covariance, its
   // inverse and the screen position go out through shared memory; a zero
   // determinant zeroes the alpha.
@@ -580,8 +611,10 @@ keygen_project_kernel(const Buffers b, const KeygenParams p) {
   cp_async_wait<0>();
   __syncthreads();
   if (live) {
-    const float3 rgb = sh_colour(s_pos[3 * tid], s_pos[3 * tid + 1], s_pos[3 * tid + 2],
-                                 smem + kShOff, tid, p);
+    // No reader looks up the colour of a gaussian without an element.
+    const float3 rgb = count > 0 ? sh_colour(s_pos[3 * tid], s_pos[3 * tid + 1],
+                                             s_pos[3 * tid + 2], smem + kShOff, tid, p)
+                                 : make_float3(0.0f, 0.0f, 0.0f);
     reinterpret_cast<float4*>(b.color_alpha)[i] =
         make_float4(rgb.x, rgb.y, rgb.z, det_ok ? __ldg(b.opacity + i) : 0.0f);
   }

@@ -51,7 +51,8 @@ class Projection(NamedTuple):
              (clamped to the capacity), max(w, 1), min_x, min_y, the depth
              key's int32 bits
     color_alpha [N,4], cov2d [N,3], cov_inv [N,3], screen_pos [N,2]:
-             float32 frame data (ops/keygen.py:GaussianFrameData)
+             float32 frame data (ops/keygen.py:GaussianFrameData); the rgb
+             is 0 where the count is 0 (K7 reads no SH row there)
     extents: [N, 4] int32 (min_x, min_y, max_x, max_y), with `with_aux`
     flags:   [N] uint8, bit 0 visible, bit 1 kept by the prefilter, with
              `with_aux`
@@ -147,10 +148,12 @@ def project_gaussians_plain(table, view, proj, cam_pos, config: RenderConfig, ca
     if capacity is None:
         return Projection(counts.sum(), **aux)
 
-    # SH colour (InitSortList.comp:122-126).
+    # SH colour (InitSortList.comp:122-126), of the gaussians that emit:
+    # no reader looks up any other's, and K7 reads no other SH row.
     cam = torch.as_tensor(cam_pos, device=table.position.device)
     to_gauss = project.normalize_dirs(table.position - cam[None, :])
     rgb = project.sh_color(to_gauss, table.sh, config.sh_mode)
+    rgb = torch.where((counts > 0)[:, None], rgb, 0.0)
 
     # Inverse 2D covariance (RenderGaussians.comp:94-105): a zero determinant
     # zeroes the alpha instead.
@@ -296,6 +299,19 @@ def project_gaussians(table, view, proj, cam_pos, config: RenderConfig, capacity
     _check(table, thr_dilated, config)
     return project_gaussians_plain(table, view, proj, cam_pos, config, capacity, thr_dilated,
                                    with_aux=with_aux)
+
+
+def emitting(p: Projection) -> torch.Tensor:
+    """[N] bool: the gaussians whose count is above 0, from `p.cum` (the
+    full mode's): the rows whose SH row K7 reads and whose colour it
+    evaluates."""
+    return torch.diff(p.cum, prepend=p.cum.new_zeros(1)) > 0
+
+
+def sh_rows_read(p: Projection) -> int:
+    """The SH rows K7 read for `p` (the gaussians with a count above 0).
+    Reads the device: for checks and tests, off the frame path."""
+    return int(emitting(p).sum())
 
 
 FLOAT_FIELDS = ("color_alpha", "cov2d", "cov_inv", "screen_pos")

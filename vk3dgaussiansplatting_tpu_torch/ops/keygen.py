@@ -77,7 +77,9 @@ class GaussianFrameData(NamedTuple):
     """Per-gaussian frame intermediates (InitSortList.comp:123-127 write-back
     plus the screen position RenderGaussians recomputes).
 
-    color_alpha: [N,4] SH colour rgb + opacity (0 where det(cov2d) == 0)
+    color_alpha: [N,4] SH colour rgb (0 where the gaussian emits no
+                 element: no reader looks it up) + opacity (0 where
+                 det(cov2d) == 0)
     cov2d:       [N,3] 2D covariance (upper triangle)
     cov_inv:     [N,3] inverse 2D covariance (RenderGaussians.comp:94-105)
     screen_pos:  [N,2] pixel-space position
