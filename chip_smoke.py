@@ -327,6 +327,9 @@ COUNTERS = (
     "depth_order",
     # radix sorts with no depth column (the uncapped radix frame's, once a frame).
     "radix_two_column",
+    # depth orders whose word's h field is narrower than the grid's height
+    # (the native frame's, once a frame; none at 720p and 1080p).
+    "depth_order_wide",
 )
 
 
@@ -720,21 +723,37 @@ def host_us(fn, iters: int = 50) -> float:
     return seconds / iters * 1e6
 
 
-def device_ops(fn) -> list[str]:
+# Windows `device_ops` takes again when its `need` is missing.
+DEVICE_OPS_RETAKES = 3
+
+
+def device_ops(fn, need: str | None = None) -> list[str]:
     """The device activities (kernels, memsets, copies) of one call of
     `fn`, in the order they started, from torch.profiler's CUDA trace.
     The trace can lose the first activities after it starts (a pass's
     first one or two, on the H100), so a spin kernel of `SETTLE_CYCLES`,
-    waited on and left out of the result, goes first."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(SETTLE_CYCLES)
+    waited on and left out of the result, goes first.  With `need`, a
+    window in which no activity's name holds it calls `fn` again under a
+    new window, with one more spin kernel before it each time, up to
+    DEVICE_OPS_RETAKES times (each retake logged); the last window's
+    activities are returned either way."""
+    for take in range(DEVICE_OPS_RETAKES + 1):
         torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and "spin_kernel" not in e.name]
-    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(take + 1):
+                torch.cuda._sleep(SETTLE_CYCLES)
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+        ops = [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+        if need is None or any(need in op for op in ops):
+            return ops
+        if take < DEVICE_OPS_RETAKES:
+            log(f"device_ops: the window lost every {need} (first ops "
+                f"{[short_op(x) for x in ops[:3]]}); retake {take + 1}")
+    return ops
 
 
 def short_op(name: str) -> str:
@@ -747,6 +766,7 @@ def short_op(name: str) -> str:
 # order (its scratch memset, the prep, a scatter a depth digit, the scan)
 # comes between K7 and K1.
 KEYGEN_PASS = ("partition_kernel", "expand_rows_kernel")
+K7_KERNEL = "keygen_project_kernel"
 DEPTH_ORDER_PASS = ("Memset", "radix_rows_prep_kernel",
                     *["radix_scatter_kernel"] * radix_kernel.DEPTH_PASSES,
                     "radix_rows_scan_kernel")
@@ -760,7 +780,7 @@ def check_keygen_pass(ops: list[str], what: str, depth_order: bool = False) -> l
     Raises otherwise, or if the window holds no full K7 launch; returns the
     last pass's ops, from the one before K7 to K1's expansion."""
     want = (DEPTH_ORDER_PASS if depth_order else ()) + KEYGEN_PASS
-    full = [j for j, op in enumerate(ops) if "keygen_project_kernel" in op]
+    full = [j for j, op in enumerate(ops) if K7_KERNEL in op]
     if not full:
         raise RuntimeError(f"{what}: the profiler saw no full K7 launch in "
                            f"{[short_op(x) for x in ops]}")
@@ -870,9 +890,10 @@ def run_scene(name: str):
     radix_kernels = check_radix_kernels(name, call_plan(cap.args["radix_sort"]),
                                         counts["radix_sort"], read_kernels()["radix_sort"],
                                         counts["depth_order"])
-    if any(v != drawn for v in launches.values()):
+    if any(v != drawn for v in launches.values()) or counts["depth_order_wide"]:
         raise RuntimeError(f"{name}: K7, the depth order, K1, the radix sort and K2 must launch "
-                           f"once a frame, {drawn} frames: {launches}")
+                           f"once a frame, {drawn} frames, and no depth order take the wide "
+                           f"record: {launches}, {counts['depth_order_wide']} wide")
     if sorts.calls:
         raise RuntimeError(f"{name}: {sorts.calls} torch.sort/argsort calls in "
                            f"{WARMUP_FRAMES} uncapped frames")
@@ -885,7 +906,7 @@ def run_scene(name: str):
     if int(out.num_elements) <= 0:
         raise RuntimeError(f"{name}: no live elements")
     # One more frame at the last camera, under the profiler.
-    keygen_pass = check_keygen_pass(device_ops(lambda: renderer.draw(cam)), name,
+    keygen_pass = check_keygen_pass(device_ops(lambda: renderer.draw(cam), K7_KERNEL), name,
                                     depth_order=True)
     log(f"scene {name}: {table.num_gaussians} gaussians, capacity "
         f"{renderer.capacity}, scale x{mult:.4f} -> {live} live (target {target}, "
@@ -1699,6 +1720,100 @@ def ab_k7(trees=("tmp/parent", ".", ".", "tmp/parent")) -> None:
                        cwd=tree, check=True, timeout=900)
 
 
+# Garden's native capture size (Mip-NeRF 360, 5187 x 3361): a 325 x 211
+# tile grid whose rows' word holds h in 6 bits (radix_kernel.rows_wide).
+NATIVE_SCENE = "garden30k_1080p"
+NATIVE_SIZE = (5187, 3361)
+NATIVE_FRAMES = 10
+
+
+def run_native(mult: float):
+    """garden's stand-in cloud, at the scale calibrated at 1080p, drawn at
+    its native 5187 x 3361 size: its launches a frame (K7, one depth order
+    counted as "depth_order_wide", K1, the tile key's setup, histogram and 3
+    scatters, K2); the last frame's own radix sort, depth order, K1 and K2
+    against their plain versions (`check_radix`, `check_depth_order`,
+    `check_kernels`); the rows marked in the word (h above the field, or
+    straddling E); the same rows with every kept count read from the scan
+    (a grid height that leaves the word one bit for h: the other design of
+    the wide record), equal and timed; ms a frame, by pass, on the
+    depth-first way and on the index order with the full key, and the two
+    images equal.  Returns (results by kernel, launches a frame, the
+    path's launches)."""
+    table, config, cam, _target, _frames = make_scene(NATIVE_SCENE)
+    native = dataclasses.replace(config, width=NATIVE_SIZE[0], height=NATIVE_SIZE[1])
+    gw, gh = native.grid_width, native.grid_height
+    if not (sort.depth_first(native) and radix_kernel.rows_wide(gw, gh)):
+        raise RuntimeError(f"native: a {gw} x {gh} grid must take the wide record")
+    renderer = Renderer(native, device="cuda")
+    renderer.init_for_scene(scaled(table, mult))
+    del table
+    cam = first_pose(native)
+    base = cam.position.copy()
+    reset_counts()
+    with Capture() as cap:
+        out, frame_ms, passes = timed_draws(renderer, cam, base, NATIVE_FRAMES, cap)
+    drawn = WARMUP_FRAMES + NATIVE_FRAMES
+    counts = read_counts()
+    path = {k: counts[k] for k in UNCAPPED_PATH + ("depth_order_wide",)}
+    plan = call_plan(cap.args["radix_sort"])
+    kernels = check_radix_kernels("native", plan, counts["radix_sort"],
+                                  read_kernels()["radix_sort"], counts["depth_order"])
+    tile_passes = len(radix_kernel.schedule(native.num_tiles, "tile"))
+    if any(v != drawn for v in path.values()) or plan[2] != "tile" or tile_passes != 3:
+        raise RuntimeError(f"native: K7, the depth order (wide), K1, the two-column radix sort "
+                           f"and K2 must launch once a frame, {drawn} frames, the sort on the "
+                           f"tile key in 3 passes: {path}, plan {plan}, {tile_passes} passes")
+    check_image(out.image, native, "native")
+    res = check_kernels(cap.args, native, "native", passes)
+    res["radix_sort"] = check_radix(cap.args["radix_sort"], "native")
+    res["radix_sort"]["kernels_per_sort"] = kernels
+    res["depth_order"] = order = check_depth_order(cap.args["depth_order"], "native")
+    (cols, cum, capacity, _gw, _gh), _kw = cap.args["depth_order"]
+    del cap
+    bits = radix_kernel.h_bits(gw, gh)
+    kept, word = radix_kernel.pack_rows_plain(cols, cum, capacity, gw, gh)
+    order["marked_rows"] = int(((kept > 0) & (word >> (32 - bits) == (1 << bits) - 1)).sum())
+    del kept, word
+    tall_h = (1 << (31 - 2 * gw.bit_length())) - 1
+
+    def every():
+        return radix_kernel.depth_order(cols, cum, capacity, gw, tall_h)
+
+    got, alt = radix_kernel.depth_order(cols, cum, capacity, gw, gh), every()
+    m = order["kept_rows"]
+    if not (torch.equal(got[1], alt[1]) and torch.equal(got[0][:, :m], alt[0][:, :m])):
+        raise RuntimeError("native: every count from the scan differs from the wide record")
+    del got, alt
+    order["every_from_scan_ms"] = cuda_ms(every, 20)
+    order["every_from_scan_device_ms"] = device_kinds(every, {"prep": r"rows_prep",
+                                                              "scatter": r"radix_scatter",
+                                                              "scan": r"rows_scan"})
+    frame = {"live": int(out.num_elements), "frame_ms": statistics.median(frame_ms),
+             "passes": passes}
+    real = sort.depth_first
+    sort.depth_first = lambda config: False
+    try:
+        index_img, frame_ms, frame["index_order_passes"] = timed_draws(renderer, cam, base,
+                                                                      NATIVE_FRAMES)
+    finally:
+        sort.depth_first = real
+    frame["index_order_frame_ms"] = statistics.median(frame_ms)
+    if not torch.equal(out.image_u8, index_img.image_u8):
+        raise RuntimeError("native: the depth-first image differs from the index order's")
+    frame["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["frame"] = frame
+    log(f"native {gw} x {gh}: launches {path} over {drawn} frames, {kernels:g} kernels a radix "
+        f"sort; {frame['live']} live; {order['marked_rows']} of {m} kept rows marked in the "
+        f"word's {bits}-bit h field; the wide record {order['ms']:.3f} ms "
+        f"{order['device_ms']}, every count from the scan {order['every_from_scan_ms']:.3f} ms "
+        f"{order['every_from_scan_device_ms']}; frame ms depth-first {frame['frame_ms']:.3f} "
+        f"{passes}, index order {frame['index_order_frame_ms']:.3f} "
+        f"{frame['index_order_passes']}; images equal; peak {frame['peak_bytes']}")
+    print(json.dumps({"native": res}), flush=True)
+    return res, {k: v / drawn for k, v in counts.items()}, path
+
+
 def timed_draws(renderer: Renderer, cam: Camera, base, frames: int, cap=None):
     """WARMUP_FRAMES + `frames` draws, the camera stepped 1e-3 in x a frame
     from `base`: (last FrameOutputs, ms of each timed frame, per-pass ms)."""
@@ -1933,7 +2048,8 @@ def run_capped(name: str, mult: float):
         if chained and plan.mode != "steady":
             raise RuntimeError(f"{name}: the steady switch was not taken")
         syncs, sync_lines = count_syncs(lambda: [draw() for _ in range(SYNC_FRAMES)])
-        keygen_pass = check_keygen_pass(device_ops(draw), f"{name} capped", depth_order=True)
+        keygen_pass = check_keygen_pass(device_ops(draw, K7_KERNEL), f"{name} capped",
+                                        depth_order=True)
         for k in capped_ops.PATH_COUNTS:
             capped_ops.PATH_COUNTS[k] = 0
         timer = CudaPassTimer()
@@ -2616,6 +2732,14 @@ def main() -> None:
             launches[k] += v
         del renderer, args
         torch.cuda.empty_cache()
+    # garden at its native size: the depth order's wide record, the 17-bit
+    # tile key, K1 and K2 at 68,575 tiles (kept out of the kernel table,
+    # which stays on the scenes' inputs).
+    _native, per_frame["native"], path_launches = run_native(mults[NATIVE_SCENE])
+    for k, v in path_launches.items():
+        launches[k] += v
+    del _native
+    torch.cuda.empty_cache()
     for name in SCENES:
         results[name]["bitonic_sort"], path_launches, per_frame["bitonic"] = run_bitonic(
             name, mults[name])

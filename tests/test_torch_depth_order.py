@@ -12,9 +12,15 @@ depth-ordered expansion against JAX's index-order list stably reordered by
 depth; the row order against a numpy model on crafted rows; the keys'
 schedules; which frame paths take the depth order; which sort a depth
 column (the uncapped radix frame's does not, and its image is the
-three-column frame's).  On the card (`cuda` marker, skipped without one):
+three-column frame's).  At grids whose rows' word holds h in fewer bits
+than the grid's height needs (256 x 128, the native 5187 x 3361 frame's
+325 x 211, 1024 x 32 tiles): the row order against the numpy model, the
+sorted list and ranges against JAX's and the index-order path's, and a
+4096 x 2048 frame's image against the index-order frame's and
+splatbench's reference.  On the card (`cuda` marker, skipped without one):
 the row order and the tile-key sort bit for bit with their plain versions
-at garden's and train7k's sizes, the two-column sort against its plain
+at garden's and train7k's sizes, a native frame's row order, list, ranges
+and image, the two-column sort against its plain
 version and the three-column sort, the launches a frame on each path, and
 no spill or stack in ptxas's report of the radix kernels.
 """
@@ -48,6 +54,7 @@ from vk3dgaussiansplatting_tpu_torch.ops import sort as tsort
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import _build
 from vk3dgaussiansplatting_tpu_torch.ops.cuda import radix_kernel as rk
 from vk3dgaussiansplatting_tpu_torch.parallel import dist as td
+from vk3dgaussiansplatting_tpu_torch.render.camera import Camera as TorchCamera
 from vk3dgaussiansplatting_tpu_torch.scenes import synthetic
 
 torch.set_num_threads(1)
@@ -61,6 +68,10 @@ CLOUD_POSE = ((0.0, 0.0, 2.0), (math.pi, 0.0))
 EDGE_POSE = ((1.0, 0.5, -3.0), (0.2, 0.1))
 CASES = ["720p", "1080p", "pow2_tiles", "equal_depths", "zero_counts", "over_capacity",
          "prefilter"]
+# Frames whose tile grids (256 x 128, 325 x 211 at the native 5187 x 3361
+# capture size, 1024 x 32) pass the 32 bits of a record word that holds
+# every h: the word's h field is narrower there (`radix_kernel.rows_wide`).
+WIDE = {"256x128": (4096, 2048), "325x211": (5187, 3361), "1024x32": (16384, 512)}
 
 
 def _cloud(n=2048, mult=3.0, copies=0):
@@ -92,6 +103,8 @@ def _case(name):
         pose = EDGE_POSE
     elif name == "over_capacity":
         capacity = "half"
+    elif name in WIDE:
+        config = dataclasses.replace(config, width=WIDE[name][0], height=WIDE[name][1])
     elif name == "prefilter":  # 16 x 16 tiles
         config = dataclasses.replace(PREFILTER_CONFIG, expansion_method="repeat")
         table, thr = walled_scene(), thresholds(PREFILTER_CONFIG, seed=1)
@@ -167,12 +180,26 @@ def _rows(rng, n, counts, capacity, depth):
     120 x 68 grid, the depth bits as int32, and their inclusive scan."""
     w = rng.integers(1, 9, n)
     h = np.where(counts > 0, counts // np.maximum(w, 1), 0)
+    return _rows_of(rng, w, h, rng.integers(0, 121, n), rng.integers(0, 69, n), capacity, depth)
+
+
+def _rows_of(rng, w, h, min_x, min_y, capacity, depth):
     counts = w * h
     cum = np.cumsum(counts)
-    cols = np.stack([np.arange(n), np.minimum(cum - counts, capacity), w,
-                     rng.integers(0, 121, n), rng.integers(0, 69, n),
+    cols = np.stack([np.arange(w.shape[0]), np.minimum(cum - counts, capacity), w, min_x, min_y,
                      depth.astype(np.uint32).view(np.int32)]).astype(np.int32)
     return torch.from_numpy(cols), torch.from_numpy(cum.astype(np.int64))
+
+
+def _grid_rows(rng, n, grid_w, grid_h, capacity, depth, zero_share=0.3):
+    """K7-like rows over a whole grid_w x grid_h grid: extents inside it,
+    a third of them up to the grid's full height, a share zero."""
+    min_x, min_y = rng.integers(0, grid_w, n), rng.integers(0, grid_h, n)
+    w = 1 + (rng.random(n) * (grid_w - min_x)).astype(np.int64)
+    tall = rng.random(n) < 0.3
+    h = 1 + (rng.random(n) * np.where(tall, grid_h - min_y, np.minimum(grid_h - min_y, 8)))
+    h = np.where(rng.random(n) < zero_share, 0, h.astype(np.int64))
+    return _rows_of(rng, w, h, min_x, min_y, capacity, depth)
 
 
 def _row_order_model(cols, cum, capacity):
@@ -223,6 +250,154 @@ def test_depth_order_rows_match_numpy_model(case):
         assert int((kept < full[rows]).sum()) == 1
 
 
+@pytest.mark.parametrize("grid", list(WIDE))
+def test_wide_record_rows_match_numpy_model(grid):
+    """`depth_order` on a grid whose word's h field is narrower than its
+    height: rows drawn from a seed over the whole grid (extents up to its
+    full width and height, a share keeping nothing, one straddling the
+    capacity, tied depth keys) against the numpy model, columns, offsets
+    and scan; rows whose h reaches the field's marker are among them, and
+    every other kept row's word holds its kept count as max(w, 1) h."""
+    w, h = WIDE[grid]
+    gw, gh = -(-w // 16), -(-h // 16)
+    assert rk.rows_wide(gw, gh)
+    rng = np.random.default_rng(list(WIDE).index(grid) + 40)
+    n = 2 * rk.TILE + 333
+    depth = rng.integers(0, 2**32, n)
+    depth[rng.random(n) < 0.2] = 0x7FFFFFFF
+    cols, cum = _grid_rows(rng, n, gw, gh, 10**9, depth)
+    capacity = int(cum[-1]) * 3 // 4
+    cols[1] = cols[1].clamp(max=capacity)
+    got_cols, got_cum = rk.depth_order(cols, cum, capacity, gw, gh)
+    rows, kept = _row_order_model(cols, cum, capacity)
+    m = rows.shape[0]
+    scan = np.cumsum(kept)
+    np.testing.assert_array_equal(got_cum.numpy()[:m], scan)
+    want = cols.numpy()[:, rows].copy()
+    want[1] = scan - kept
+    np.testing.assert_array_equal(got_cols.numpy()[:, :m], want)
+    k, word = rk.pack_rows_plain(cols, cum, capacity, gw, gh)
+    marker = (1 << rk.h_bits(gw, gh)) - 1
+    h_field = word >> (32 - rk.h_bits(gw, gh))
+    tall = (k > 0) & (k // cols[2].to(torch.int64) >= marker)
+    assert int(tall.sum()) > 100 and bool((h_field[tall] == marker).all())
+    count = cum - torch.cat([cum.new_zeros(1), cum[:-1]])
+    straddle = (k > 0) & (k < count)
+    assert int(straddle.sum()) == 1 and bool((h_field[straddle] == marker).all())
+    whole = (k > 0) & (h_field != marker)
+    assert torch.equal(h_field[whole] * cols[2][whole].to(torch.int64), k[whole])
+
+
+def _marked_rows(cols, cum, capacity, grid_w, grid_h) -> int:
+    """Rows that keep a slot and carry the h field's all-ones marker."""
+    bits = rk.h_bits(grid_w, grid_h)
+    kept, word = rk.pack_rows_plain(cols, cum, capacity, grid_w, grid_h)
+    return int(((kept > 0) & (word >> (32 - bits) == (1 << bits) - 1)).sum())
+
+
+def _index_order_lists(name):
+    """The port's index-order list (keygen without the depth order) sorted
+    on the full key, as a grid past the packed word would sort it."""
+    table, cam, config, thr, _rule = _case(name)
+    view, proj = cam.matrices()
+    tt, tcfg = convert.table_from_jax(table), convert.config_from_jax(config)
+    total = int(tkg.count_live_elements(tt, view, proj, cam.position, tcfg))
+    el, _ = tkg.generate_sort_elements(tt, view, proj, cam.position, tcfg, total + 1001)
+    return tsort.sort_elements(el, tcfg)
+
+
+@pytest.mark.parametrize("grid", list(WIDE))
+def test_wide_grid_depth_first_sort_matches_jax_and_index_order(grid):
+    """At the wide grids, the frame's way (K7's rows in depth order, some
+    marked for their height, then the tile key: 3 passes at 17 bits where
+    the grid has 2^16 tiles or more) gives JAX's (tile, depth, index)
+    sorted list and ranges, and the port's index-order list on the full
+    key, bit for bit."""
+    je, te, config, total, capacity = _lists(grid)
+    tcfg = convert.config_from_jax(config)
+    num_tiles = config.num_tiles
+    assert rk.rows_wide(config.grid_width, config.grid_height)
+    assert len(rk.schedule(num_tiles, "tile")) == (3 if num_tiles >= 2**16 else 2)
+    table, cam, *_ = _case(grid)
+    view, proj = cam.matrices()
+    p = tkg.keygen_kernel.project_gaussians(convert.table_from_jax(table), view, proj,
+                                            cam.position, tcfg, capacity, None)
+    assert _marked_rows(p.cols, p.cum, capacity, config.grid_width, config.grid_height) > 0
+    js = _jax_sort(je, num_tiles=num_tiles)
+    ts = tsort.sort_elements(te, tcfg, depth_ordered=True)
+    index_order = _index_order_lists(grid)
+    for col in ("tile", "depth", "index"):
+        np.testing.assert_array_equal(getattr(ts, col).numpy(), _np(getattr(js, col)), col)
+        assert torch.equal(getattr(ts, col), getattr(index_order, col)), col
+    assert int(ts.count) == int(js.count) == total > 0
+    ranges = tranges.find_ranges(ts, num_tiles)
+    np.testing.assert_array_equal(ranges.numpy(), _np(_jax_ranges(js, num_tiles=num_tiles)))
+    assert torch.equal(ranges, tranges.find_ranges(index_order, num_tiles))
+
+
+def test_wide_frame_is_the_index_order_frame_and_the_references(monkeypatch):
+    """A 4096 x 2048 frame (256 x 128 tiles, the word's h field 6 bits) of
+    3,000 seeded gaussians drawn by `Renderer.draw`, its list cut at the
+    capacity and rows taller than 62 tiles among those that keep a slot:
+    its sorted list, ranges and image equal, bit for bit, the index-order
+    frame's (keygen's index order, the full key), and its image is within
+    one 8-bit step of splatbench's plain reference (docs/TOLERANCES.md),
+    with the same live elements."""
+    import json
+    from pathlib import Path
+
+    from splatbench import judge, reference, scene
+    from vk3dgaussiansplatting_tpu_torch import SphericalHarmonicsMode
+    from vk3dgaussiansplatting_tpu_torch.models.gaussians import GaussianTable
+
+    cfg = json.loads((Path(reference.__file__).parent / "configs"
+                      / "garden30k_1080p.json").read_text())
+    render = dict(cfg["render"], width=4096, height=2048, capacity_slack_per_tile=4)
+    n = 3000
+    fr = reference.frame_constants(render, n)
+    rc = TorchConfig(**dict(render, sh_mode=SphericalHarmonicsMode(render["sh_mode"]),
+                            sort_algorithm=TorchSort(render["sort_algorithm"])))
+    assert tsort.depth_first(rc) and rk.rows_wide(rc.grid_width, rc.grid_height)
+    cloud = scene.make_cloud(n, cfg["assumed"]["cloud"], 2**33 + 5, "cpu")
+    cloud = scene.scaled(cloud, 15.0)
+    cam = scene.Orbit(cfg["assumed"]["camera"], rc.width / rc.height, 16, 0.02, 3).camera(1)
+    view, proj = cam.matrices()
+    renderer = Renderer(rc, device="cpu")
+    renderer.init_for_scene(GaussianTable(*cloud))
+    assert renderer.capacity == fr.capacity
+    lists = []
+    real_sort = tsort.sort_elements
+
+    def spy(*a, **k):
+        lists.append(out := real_sort(*a, **k))
+        return out
+
+    monkeypatch.setattr(tsort, "sort_elements", spy)
+    marked = []
+    real_order = rk.depth_order
+
+    def order(*a):
+        marked.append(_marked_rows(*a))
+        return real_order(*a)
+
+    monkeypatch.setattr(rk, "depth_order", order)
+    depth_first = renderer.draw(cam)
+    monkeypatch.setattr(tsort, "depth_first", lambda config: False)
+    index_order = renderer.draw(cam)
+    assert len(marked) == 1 and marked[0] > 5, marked  # rows taller than the h field's 62 tiles
+    (a, b) = lists
+    assert a.depth is None and b.depth is not None
+    assert torch.equal(a.tile, b.tile) and torch.equal(a.index, b.index)
+    assert torch.equal(tranges.find_ranges(a, rc.num_tiles), tranges.find_ranges(b, rc.num_tiles))
+    assert torch.equal(depth_first.image, index_order.image)
+    assert torch.equal(depth_first.image_u8, index_order.image_u8)
+    ref_img, _p, s, _rows = reference.render(cloud, view, proj, cam.position, fr)
+    assert int(depth_first.num_elements) == s.live > 0
+    got = judge.compare(depth_first.image_u8, ref_img)
+    assert got["max_step"] <= 1, got
+    assert depth_first.image_u8[..., :3].any()
+
+
 def test_key_schedules():
     """The tile key: bit_length(num_tiles) bits, 2 passes at 720p and
     1080p, 1 at 64 tiles; the full key 6; the rows' depth key 4."""
@@ -243,18 +418,30 @@ def test_key_schedules():
 
 
 def test_depth_first_follows_the_sort_and_the_grid():
-    """The radix sort takes the depth order up to the packed word's grid;
-    the bitonic sort never does."""
+    """The radix sort takes the depth order up to the packed word's grid
+    (2 bit_length(width) + bit_length(height) <= 31: every grid up to 8K
+    UHD's 480 x 270 tiles, the native 5187 x 3361 frame's 325 x 211); the
+    bitonic sort never does.  The word holds every h up to 4K UHD; past it
+    (`rows_wide`) its h field is narrower."""
     for algo, width, height, want in ((TorchSort.AUTO, 1920, 1080, True),
                                       (TorchSort.XLA_SORT, 1280, 720, True),
                                       (TorchSort.AUTO, 3840, 2160, True),
+                                      (TorchSort.AUTO, 5187, 3361, True),
+                                      (TorchSort.AUTO, 7680, 4320, True),
+                                      (TorchSort.AUTO, 8192, 8192, True),
                                       (TorchSort.BITONIC, 1920, 1080, False),
-                                      (TorchSort.AUTO, 8192, 8192, False)):
+                                      (TorchSort.BITONIC, 5187, 3361, False),
+                                      (TorchSort.AUTO, 16384, 16384, False),
+                                      (TorchSort.AUTO, 32768, 2048, False)):
         cfg = TorchConfig(width=width, height=height, sort_algorithm=algo)
         assert tsort.depth_first(cfg) is want, (algo, width, height)
+    assert all(rk.rows_pack(w, h) for w in range(1, 481) for h in range(1, 271))
+    assert not any(rk.rows_wide(w, h) for w in range(1, 241) for h in range(1, 136))
+    assert rk.rows_wide(325, 211) and rk.h_bits(325, 211) == 6
+    assert rk.rows_wide(480, 270) and rk.h_bits(480, 270) == 5
     with pytest.raises(ValueError, match="packed word"):
         cols = torch.zeros((6, 4), dtype=torch.int32)
-        rk.depth_order(cols, torch.zeros(4, dtype=torch.int64), 8, 512, 512)
+        rk.depth_order(cols, torch.zeros(4, dtype=torch.int64), 8, 1024, 1024)
 
 
 @pytest.mark.parametrize("algo", ["auto", "bitonic", "capped"])
@@ -511,6 +698,83 @@ def test_launches_a_frame_on_each_path():
     assert _build.LAUNCHES["depth_order"] == before["depth_order"]
     assert (_build.LAUNCHES["radix_kernels"] - before["radix_kernels"]
             == rk.planned_kernels(8160, counted=False))
+
+
+@pytest.mark.cuda
+def test_wide_depth_order_on_a_native_frame(monkeypatch):
+    """A native 5187 x 3361 frame on the card (325 x 211 tiles, the word's
+    h field 6 bits): the depth order's kernels on the frame's own K7 rows,
+    rows taller than 62 tiles among those kept, bit for bit with
+    `depth_order_plain`; the frame launches one depth order, counted as
+    "depth_order_wide", and the tile key's 3 scatters; its sorted list,
+    ranges and image equal the index-order frame's (the full key) bit for
+    bit.  A 1080p frame of the same scene counts no "depth_order_wide"."""
+    _needs_card()
+    table = synthetic.procedural_cloud_table(400_000, seed=7).to("cuda")
+    table = dataclasses.replace(table, scale=table.scale * np.float32(2.0))
+    cam_pose = CLOUD_POSE
+
+    def renderer(width, height):
+        cfg = TorchConfig(width=width, height=height, capacity_slack_per_tile=256,
+                          capacity_pow_two=False)
+        r = Renderer(cfg, device="cuda")
+        r.init_for_scene(table)
+        cam = TorchCamera(cfg.aspect)
+        cam.set_position(cam_pose[0])
+        cam.set_rotation(*cam_pose[1])
+        return r, cam, cfg
+
+    r, cam, cfg = renderer(5187, 3361)
+    assert (cfg.grid_width, cfg.grid_height, cfg.num_tiles) == (325, 211, 68575)
+    assert tsort.depth_first(cfg) and rk.rows_wide(325, 211)
+    rows, lists = [], []
+    real_order, real_sort = rk.depth_order, tsort.sort_elements
+
+    def order(*a):
+        rows.append(a)
+        return real_order(*a)
+
+    def spy(*a, **k):
+        lists.append(out := real_sort(*a, **k))
+        return out
+
+    monkeypatch.setattr(rk, "depth_order", order)
+    monkeypatch.setattr(tsort, "sort_elements", spy)
+    r.draw(cam)
+    torch.cuda.synchronize()
+    before = _build.LAUNCHES.copy()
+    depth_first = r.draw(cam)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+    assert got["depth_order"] == got["depth_order_wide"] == got["radix_sort"] == 1
+    assert rk.planned_kernels(cfg.num_tiles, key="tile") == 5
+    assert got["radix_kernels"] == rk.DEPTH_ORDER_KERNELS + 5
+    cols, cum, capacity, gw, gh = rows[-1]
+    assert _marked_rows(*rows[-1]) > 300 and int(depth_first.num_elements) > 10**7
+    out = rk.depth_order(cols, cum, capacity, gw, gh)
+    want = rk.depth_order_plain(cols, cum, capacity)
+    end = cum.clamp(max=capacity)
+    m = int((torch.diff(end, prepend=end.new_zeros(1)) > 0).sum())
+    assert torch.equal(out[1], want[1]) and torch.equal(out[0][1], want[0][1])
+    assert torch.equal(out[0][:, :m], want[0][:, :m])
+    monkeypatch.setattr(tsort, "depth_first", lambda config: False)
+    index_order = r.draw(cam)
+    a, b = lists[-2], lists[-1]
+    assert a.depth is None and b.depth is not None
+    assert torch.equal(a.tile, b.tile) and torch.equal(a.index, b.index)
+    assert torch.equal(tranges.find_ranges(a, cfg.num_tiles),
+                       tranges.find_ranges(b, cfg.num_tiles))
+    assert torch.equal(depth_first.image, index_order.image)
+    assert torch.equal(depth_first.image_u8, index_order.image_u8)
+    monkeypatch.undo()
+    r, cam, cfg = renderer(1920, 1080)
+    r.draw(cam)
+    torch.cuda.synchronize()
+    before = _build.LAUNCHES.copy()
+    r.draw(cam)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["depth_order"] == before["depth_order"] + 1
+    assert _build.LAUNCHES["depth_order_wide"] == before["depth_order_wide"]
 
 
 @pytest.mark.cuda

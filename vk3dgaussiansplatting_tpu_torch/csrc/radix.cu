@@ -16,10 +16,11 @@
 // bit_length(num_tiles) bits (one more than config.num_tile_bits where
 // num_tiles is a power of two: the mapped SENTINEL needs it), sorted 8 bits
 // a pass from the least significant: 6 passes at 720p (44 bits) and 1080p
-// (45).  Every pass is stable, so the order is (tile, depth) with ties in
+// (45), 7 at a native 5187 x 3361 frame's 68,575 tiles (49).  Every pass is stable, so the order is (tile, depth) with ties in
 // slot order; keygen emits a gaussian's slots in id order, so that is JAX's
 // (tile, depth, id) order.  The tile key (kKeyTile) is tile' alone,
-// bit_length(num_tiles) bits: 2 passes at 720p and 1080p; on a list whose
+// bit_length(num_tiles) bits: 2 passes at 720p and 1080p, 3 at 68,575
+// tiles (17 bits); on a list whose
 // slots are already in (depth, id) order (keygen's expansion of the rows in
 // depth order, below) its stable order is (tile, depth, id) too.  Tiles
 // must be below num_tiles or SENTINEL, as keygen makes them.
@@ -41,8 +42,13 @@
 // The record is three words: the depth key, the row id, and min_x, min_y,
 // max(w, 1) and h = kept / max(w, 1) packed (bx, by, bx and the rest of the
 // bits, bx = bit_length(grid_w), by = bit_length(grid_h); h all ones marks
-// a row whose kept count is not max(w, 1) h, the one that straddles E,
-// whose count the last pass reads from `cum`).  Kernels:
+// a row whose kept count is not max(w, 1) h, the one that straddles E, or
+// whose h does not fit below the marker, and the last pass reads its count
+// from `cum`).  The grid needs 2 bx + by <= 31, a bit at least for h.  Up
+// to 4K UHD's 240 x 135 tiles the rest holds every h; on wider grids it
+// is narrower than the height (6 bits at a native 5187 x 3361 frame's
+// 325 x 211, 5 at 8K UHD's 480 x 270), and only the rarer tall rows are
+// marked.  Kernels:
 //  (c) prep, persistent blocks (two an SM) taking partitions of 4096 rows
 //      by ticket: each row's kept count and record, the kept rows compacted
 //      in id order (a scan of the keep flags with a decoupled look-back over
@@ -76,7 +82,7 @@
 //
 // Kernels of a sort: the setup (with a count), one histogram kernel, then
 // one scatter kernel a digit: 8 at 720p and 1080p with the full key, 7
-// without a count, 4 with the tile key.
+// without a count, 4 with the tile key (5 at 68,575 tiles).
 //  (a) histogram: reads the int64 depth (the full key only) and tile of
 //      [0, n) once and counts every pass's digits in block-private shared
 //      bins, added with atomics
@@ -1281,7 +1287,7 @@ extern "C" int vk3d_radix_sort(const void* tile, const void* depth, const void* 
 // rows come first; a row past them keeps 0 slots and only its offset and
 // scan are written.  min_x and max(w, 1) must be below 2^bit_length(grid_w)
 // and min_y below 2^bit_length(grid_h), as K7 writes them, with
-// 2 bit_length(grid_w) + bit_length(grid_h) + bit_length(grid_h + 1) <= 32;
+// 2 bit_length(grid_w) + bit_length(grid_h) <= 31;
 // n < 2^30 and E < 2^30 (the status words' counts).  scratch:
 // radix_kernel.depth_order_scratch_words(n) uint32 words, 16 B aligned (the
 // header, the prep's and the scan's status words, a word a partition each
@@ -1299,7 +1305,7 @@ extern "C" int vk3d_radix_depth_order(const void* cols, const void* cum, int64_t
   const int by = bit_length(grid_h);
   if (n < 0 || n >= (int64_t{1} << kStatusCountBits) || capacity < 0 ||
       capacity >= (int64_t{1} << kStatusCountBits) || grid_w <= 0 || grid_h <= 0 ||
-      2 * bx + by + bit_length(grid_h + 1) > 32 ||
+      2 * bx + by > 31 ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -31,6 +31,10 @@ raises on the CUDA error the entry point returns, and counts the launch in
                                         column (the uncapped radix frame's)
   depth_order                           keygen's rows put in depth order (one
                                         call a frame on the radix path)
+  depth_order_wide                      those of them on a grid whose record
+                                        word holds h narrower than the
+                                        grid's height (radix_kernel.rows_wide:
+                                        past 4K UHD's 240 x 135 tiles)
   radix_kernels                         the kernels those sorts and depth
                                         orders ran, as the entry points
                                         report them
@@ -39,8 +43,9 @@ raises on the CUDA error the entry point returns, and counts the launch in
   bitonic_register, bitonic_wide        its global passes
   bitonic_global_stages                 the stages its global passes ran
 
-"radix_kernels", "radix_two_column" and "bitonic_global_stages" count no
-launch of their own: the sorts' wrappers add them after `launch`.
+"radix_kernels", "radix_two_column", "depth_order_wide" and
+"bitonic_global_stages" count no launch of their own: the sorts' wrappers
+add them after `launch`.
 """
 
 from __future__ import annotations

@@ -40,7 +40,9 @@ capacity, the "depth" key's four passes through the same scatter
 (csrc/radix.cu, "The rows' depth order"); K1 then expands them into a list
 in (depth, id) order.  It runs the kernels for CUDA tensors and
 `depth_order_plain` for CPU tensors, is counted as "depth_order" and its
-kernels as "radix_kernels".  `counting_pass` is the plain model of one
+kernels as "radix_kernels"; on a grid whose rows' word holds h in fewer
+bits than the grid's height needs (`rows_wide`), also as
+"depth_order_wide".  `counting_pass` is the plain model of one
 scatter pass's destinations, which the plain versions of both sorts use.
 """
 
@@ -258,13 +260,32 @@ def counting_pass(digit: torch.Tensor) -> torch.Tensor:
             + round_before[slot // _LANES, digit] + below[:n])
 
 
+def h_bits(grid_width: int, grid_height: int) -> int:
+    """The bits left for h in `depth_order`'s packed record word, above
+    min_x and max(w, 1) (bit_length(grid_width) bits each) and min_y
+    (bit_length(grid_height))."""
+    return 32 - 2 * grid_width.bit_length() - grid_height.bit_length()
+
+
 def rows_pack(grid_width: int, grid_height: int) -> bool:
-    """Whether `depth_order`'s packed record word holds a row's min_x and
-    max(w, 1) (bit_length(grid_width) bits each), min_y
-    (bit_length(grid_height)) and h (bit_length(grid_height + 1)): grids up
-    to about 256 x 256 tiles.  Larger ones keep keygen's index order."""
-    bits = 2 * grid_width.bit_length() + grid_height.bit_length()
-    return bits + (grid_height + 1).bit_length() <= 32
+    """Whether `depth_order` takes the grid: its packed record word keeps
+    at least one bit for h, 2 bit_length(grid_width) +
+    bit_length(grid_height) <= 31.  That holds for every grid up to 1023
+    tiles wide and 2047 high (8K UHD is 480 x 270 tiles, a native 5187 x
+    3361 frame 325 x 211, 16K 960 x 540) and up to 2047 wide at 511 high.
+    Larger grids keep keygen's index order and the full key."""
+    return h_bits(grid_width, grid_height) >= 1
+
+
+def rows_wide(grid_width: int, grid_height: int) -> bool:
+    """Whether the word's h field is narrower than h can be, bit_length(
+    grid_height + 1) bits: then a row whose h is at or above the field's
+    all-ones marker is marked, and the last pass reads its kept count from
+    the scan.  Grids up to 4K UHD's 240 x 135 tiles hold every h; a native
+    5187 x 3361 frame's 325 x 211 keeps 6 bits (h up to 62 tiles), 8K
+    UHD's 480 x 270 keeps 5 (up to 30)."""
+    return rows_pack(grid_width, grid_height) and h_bits(grid_width, grid_height) < (
+        grid_height + 1).bit_length()
 
 
 def _check_rows(cols: torch.Tensor, cum: torch.Tensor, capacity: int, grid_width: int,
@@ -277,9 +298,34 @@ def _check_rows(cols: torch.Tensor, cum: torch.Tensor, capacity: int, grid_width
     if cols.shape[1] >= MAX_SLOTS or not 0 <= capacity < MAX_SLOTS:
         raise ValueError(f"{cols.shape[1]} rows at capacity {capacity} do not fit the look-back "
                          f"status words' {STATUS_COUNT_BITS}-bit counts")
-    if not rows_pack(grid_width, grid_height):
+    if grid_width <= 0 or grid_height <= 0 or not rows_pack(grid_width, grid_height):
         raise ValueError(f"a {grid_width} x {grid_height} tile grid does not fit the rows' "
                          "packed word")
+
+
+def pack_rows_plain(cols: torch.Tensor, cum: torch.Tensor, capacity: int, grid_width: int,
+                    grid_height: int):
+    """csrc/radix.cu's prep of the record word, in torch ops, to count the
+    rows it marks: each row's kept slots, min(cum, E) - min(cum - count,
+    E), and the word holding min_x, min_y, max(w, 1) and h = kept / max(w,
+    1), or the h field's all-ones marker where the row keeps part of its
+    count, its count is not max(w, 1) h, or h does not fit below the
+    marker.  Returns (kept, word) as [N] int64.  `depth_order_plain` needs
+    none of it: the last pass reads a marked row's kept count from the
+    scan, so every row leaves with its own columns and kept count."""
+    bx, by = grid_width.bit_length(), grid_height.bit_length()
+    shift = 2 * bx + by
+    marker = 0xFFFFFFFF >> shift
+    c = cols.to(torch.int64)
+    gw, min_x, min_y = c[2], c[3], c[4]
+    end = cum.clamp(max=capacity)
+    kept = end - torch.cat([end.new_zeros(1), end[:-1]])
+    count = cum - torch.cat([cum.new_zeros(1), cum[:-1]])
+    h = torch.where(gw > 0, kept // gw.clamp(min=1), marker)
+    whole = (count == kept) & (gw > 0) & (h * gw == kept) & (h < marker)
+    h = torch.where(whole, h, marker)
+    word = (min_x | (min_y << bx) | (gw << (bx + by)) | (h << shift)) & 0xFFFFFFFF
+    return kept, word
 
 
 def depth_order_plain(cols: torch.Tensor, cum: torch.Tensor, capacity: int):
@@ -325,6 +371,8 @@ def _launch_depth_order(cols: torch.Tensor, cum: torch.Tensor, capacity: int, gr
                       out_cols.data_ptr(), out_cum.data_ptr(), ctypes.byref(launched),
                       device=dev)
         _build.LAUNCHES["radix_kernels"] += launched.value
+        if rows_wide(grid_width, grid_height):
+            _build.LAUNCHES["depth_order_wide"] += 1
     return out_cols, out_cum
 
 
@@ -338,7 +386,9 @@ def depth_order(cols: torch.Tensor, cum: torch.Tensor, capacity: int, grid_width
       cum: [N] int64 inclusive scan of the counts (`Projection.cum`).
       capacity: slot capacity E; a row keeps its share of [0, E) in the
         index-order expansion.
-      grid_width, grid_height: the tile grid (`rows_pack` must hold).
+      grid_width, grid_height: the tile grid (`rows_pack` must hold;
+        `rows_wide`: h narrower than the grid's height, counted as
+        "depth_order_wide").
 
     Returns (cols, cum) in that order: the rows that keep a slot first,
     each with the exclusive scan of the kept counts as its offset, and the

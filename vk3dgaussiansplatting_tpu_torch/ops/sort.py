@@ -27,7 +27,8 @@ The frame's sort (`depth_first`) splits that key in two.  keygen puts its
 rows in depth order before the expansion (`radix_kernel.depth_order`, 32
 bits over the gaussians that keep a slot), so its list is in (depth, id)
 order already, each gaussian's tiles row-major; the sort then keys tile'
-alone (key "tile", 2 passes at 720p and 1080p), and its stable order is
+alone (key "tile", 2 passes at 720p and 1080p, 3 at a native 5187 x 3361
+frame's 68,575 tiles), and its stable order is
 the same (tile, depth, index) order, as a gaussian touches a tile at most
 once.  The bitonic sort and the distributed frame's received lists
 (parallel/dist.py `_sort3`) keep the index order and the full key.  A
@@ -130,9 +131,12 @@ def sort_elements_xla(elements: SortElements, num_tiles: int, *, with_perm: bool
 def depth_first(config: RenderConfig) -> bool:
     """Whether the frame's keygen puts its rows in depth order and its sort
     keys the tile alone: the radix sort, on a tile grid whose extents fit
-    the rows' packed word (`radix_kernel.rows_pack`).  The bitonic
-    network's cost does not depend on its input's order, so it keeps the
-    index order."""
+    the rows' packed word (`radix_kernel.rows_pack`: 2 bit_length(grid
+    width) + bit_length(grid height) <= 31, every grid up to 1023 x 2047
+    tiles, 8K UHD's 480 x 270 and a native 5187 x 3361 frame's 325 x 211
+    among them).  Larger grids keep the index order and the full key.  The
+    bitonic network's cost does not depend on its input's order, so it
+    keeps the index order."""
     return (config.sort_algorithm in (SortAlgorithm.AUTO, SortAlgorithm.XLA_SORT)
             and radix_kernel.rows_pack(config.grid_width, config.grid_height))
 
